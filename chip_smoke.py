@@ -7,11 +7,13 @@ gait-NLP solve at bench width, and checks the results.
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build csrc/btd.cu with nvcc for sm_90a;
+  2. build csrc/btd.cu with nvcc for sm_90a (ptxas report: registers);
   3. kernel vs plain version on random SPD systems (the shapes of the
      tests, and B=8192, K=41, n=36) and on a Levenberg-Marquardt system of
      the main path; times of the kernel, the plain version, the library
-     Thomas loop, and the bound;
+     Thomas loop, and the bound; the kernel's GB/s against the bound's bytes
+     and against the bytes its design moves, its GFLOP/s, registers, shared
+     memory per block and resident warps per SM;
   4. the main path: solve_batch on the bench distribution (plane x3, K=41,
      goals 0.3..0.8, max_iters=3, rescue_iters=12) at B=1024 and B=8192,
      with the kernel's launch counter, convergence and the 1 kHz table;
@@ -22,8 +24,11 @@ The second-last line is {"kernels": [...]}; the last is
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -79,7 +84,13 @@ def main() -> None:
 
     # ---- 2. build -------------------------------------------------------
     t0 = time.time()
-    path = btd_mod.build(verbose=True)
+    report = io.StringIO()
+    with contextlib.redirect_stdout(report):
+        path = btd_mod.build(verbose=True)
+    report = report.getvalue()
+    log(report.rstrip())
+    regs = re.search(r"Used (\d+) registers", report)
+    regs = int(regs.group(1)) if regs else None
     log(f"# phase 2 build: {path} in {time.time() - t0:.1f} s")
 
     # ---- 3. kernel vs plain ----------------------------------------------
@@ -123,6 +134,15 @@ def main() -> None:
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
+    def design_bytes(B, K, n):
+        """Bytes the kernel's design moves: D once, L twice (forward and back
+        pass), the packed factors C_0..C_{K-2} written (n(n+1)/2 floats each)
+        and read back (padded to a multiple of 4 floats), b read, y_k written
+        and read back, x written."""
+        packed = n * (n + 1) // 2
+        return 4 * (B * K * n * n + 2 * B * (K - 1) * n * n
+                    + B * (K - 1) * (packed + (packed + 3) // 4 * 4) + 4 * B * K * n)
+
     def spd_system(B, K, n, seed):
         rng = np.random.default_rng(seed)
         gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
@@ -164,6 +184,15 @@ def main() -> None:
                      f"(library vs true x {float((xl - xt).abs().max()):.3e}), "
                      f"bound {bms:.3f} ms by {bby} ({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)")
             kernel_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=bby)
+            occ = btd_mod.occupancy(n)
+            dbytes = design_bytes(B, K, n)
+            line += (f"\n# phase 3 rates B={B} K={K} n={n} on {card}: "
+                     f"{nbytes / ms / 1e6:.1f} GB/s of the bound's {nbytes / 1e9:.3f} GB, "
+                     f"{dbytes / ms / 1e6:.1f} GB/s of the design's {dbytes / 1e9:.3f} GB "
+                     f"(design floor {dbytes / PEAK_BYTES_PER_S * 1e3:.3f} ms), "
+                     f"{flops / ms / 1e6:.1f} GFLOP/s; {regs} registers per thread, "
+                     f"{occ['smem_per_block']} B shared memory per block, "
+                     f"{occ['warps_per_sm']} resident warps per SM")
         log(line)
         del D, L, b, xt, x, xp
     torch.cuda.empty_cache()

@@ -7,7 +7,9 @@
 //
 // H = blocktridiag(diag = D_k, lower = L_k at (k+1, k), upper = L_k^T).
 // Shapes (float32, contiguous, batch-major): D (B, K, n, n), L (B, K-1, n, n),
-// b (B, K, n), x (B, K, n); C (B, K, n, n) is scratch for the factors.
+// b (B, K, n), x (B, K, n).  C (B, K-1, btd_packed_floats(n)) is scratch:
+// the factors C_0 .. C_{K-2}, each lower triangle packed row by row
+// (n(n+1)/2 floats, padded to a multiple of 4), for the back pass.
 //
 // Recursion (the TPU kernel's, without its transposes):
 //   S_0 = D_0, C_0 = chol(S_0), y_0 = b_0
@@ -16,206 +18,584 @@
 //            S_k = D_k - M M^T,  C_k = chol(S_k), pivots clamped at 1e-12
 //   x_{K-1} = S_{K-1}^-1 y_{K-1},  x_k = S_k^-1 (y_k - L_k^T x_{k+1})
 //
-// Design: one thread block per scenario; the whole K-step forward recursion
-// and the back substitution run inside one launch.  C_{k-1}, S_k and M (with
-// z as an extra row) live in shared memory with a padded leading dimension
-// n+1, so the per-row forward substitutions read distinct banks.  y_k is kept
-// in x's slot k until the back pass overwrites it with x_k, and C_k is
-// written to the scratch for the back pass (lower triangle only).  Any
-// n <= 64 and any B are accepted; there is no padding of n or B.
+// Mapping: one warp per scenario.  A block holds kWarps warps; each warp
+// walks the batch by grid stride and solves whole scenarios alone, with
+// __syncwarp and shuffles only: no block-wide barrier.  The grid is at most
+// the blocks that fit on the card at once.  Lane l owns rows l and l + 32
+// (n <= 64).  Each warp's shared memory holds
+//   CS  n x P, P = cs_pitch(n) (36 at n = 36):  C_{k-1}, then D_k -> S_k -> C_k;
+//       in the back pass, L_k
+//   M   (n+1) x (n+1):  L_{k-1} -> M, and y_{k-1} -> z in its last row;
+//       in the back pass, two packed factors (C_k and the next one)
+//   v   n:              y_k in the forward pass, x_{k+1} in the back pass
+// Step k: the row solves against CS; D_k into CS; y_k = b_k - M z; the lower
+// triangle of S_k = D_k - M M^T; Cholesky in place, which also writes C_k
+// packed to the scratch from registers.  y_k waits in x's slot k until the
+// back pass overwrites it with x_k.
 //
-// What bounds it on an H100: the work is ~(1/3 + 1 + 1) n^3 flops per block
-// step (Cholesky, triangular solve with n right-hand sides, symmetric rank-n
-// update) and the bytes are D, L and b read once and x written once.  At
-// B=8192, K=41, n=36 that is ~37 GFLOP (0.55 ms at 67 TFLOP/s f32) against
-// 3.5 GB (1.06 ms at 3.35 TB/s): the bytes bound it.  This first version adds
-// the C_k spill and re-reads of C and L in the back pass (~8.7 GB) and runs
-// the Cholesky column by column with two barriers per column, so it is
-// latency-bound well above that bound; chip_smoke.py measures it.
+// What bounds it on an H100 at B=8192, K=41, n=36: the work's own bytes (D,
+// L, b read once, x written once) are 3.54 GB, 1.06 ms at 3.35 TB/s, and its
+// ~40 GFLOP take 0.60 ms at 67 TFLOP/s f32.  This design moves D once
+// (1.74 GB), L twice (3.40 GB), the packed factors out and back (1.75 GB)
+// and b, y, x (0.19 GB): ~7.1 GB, 2.1 ms.  Going below that needs the
+// factors kept on chip (~109 KB per scenario).
+//
+// What sets its time is the dependent chain of each scenario more than any
+// one throughput: on an H100 a scenario alone on its SM takes half as long
+// as each of 20 sharing one, and device memory carries about a third of
+// its peak; issue slots and shared-memory wavefronts are not measured
+// (PERF.md).  So the design shortens the chain: every copy from
+// device memory is a cp.async issued ahead of its use (L_k during the
+// Cholesky of step k, D_k during y_k = b_k - M z and the first tiles of the
+// rank update, the back pass's L_k and C_k during the previous step's vector
+// solves); the triangular solves multiply by reciprocals computed off the
+// chain; the Cholesky and the row solves go four columns at a time, with
+// float4 broadcasts of the pivot rows; the rank update runs on 4 x 4
+// register tiles; and the occupancy is as high as shared memory allows.
+//
+// Occupancy at n = 36: (36*36 + 37*37 + 36) * 4 B = 10,816 B per warp,
+// 43,264 B per 4-warp block; five blocks with their 1 KB reserve each take
+// 221,440 of the SM's 233,472 bytes, so 20 scenarios are in flight per SM.
+// __launch_bounds__(128, 5) holds registers to that occupancy (96 used,
+// with a 28-byte spill).
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 4;
+constexpr int kMinBlocks = 5;
 constexpr int kMaxN = 64;
+constexpr unsigned kFull = 0xffffffffu;
 
-// In place: the lower triangle of S (n x n, leading dim ld) becomes its
-// Cholesky factor.  Right-looking, one column per step.
-__device__ void chol_inplace(float* S, int n, int ld) {
-  for (int j = 0; j < n; ++j) {
-    const float d = rsqrtf(fmaxf(S[j * ld + j], 1e-12f));
-    for (int i = j + 1 + threadIdx.x; i < n; i += blockDim.x) S[i * ld + j] *= d;
-    __syncthreads();
-    // Nobody reads S[j][j] in this phase: the trailing update below uses the
-    // scaled column under the pivot only.
-    if (threadIdx.x == 0) S[j * ld + j] *= d;
-    const int m = n - j - 1;
-    for (int t = threadIdx.x; t < m * m; t += blockDim.x) {
-      const int i = j + 1 + t / m;
-      const int l = j + 1 + t % m;
-      if (l <= i) S[i * ld + l] -= S[i * ld + j] * S[l * ld + j];
+// Pitch of CS: the least multiple of 4 that is >= n and whose quarter is
+// odd.  Its rows are then 16-byte aligned for float4 reads and cp.async,
+// and the 8 rows that a quarter-warp reads as float4 at one column fall in
+// 8 distinct groups of 4 banks.
+__host__ __device__ constexpr int cs_pitch(int n) { return 4 * (((n + 3) >> 2) | 1); }
+
+// Floats of one packed factor in the scratch and in shared memory:
+// n(n+1)/2 rounded up to a multiple of 4, for 16-byte copies.
+__host__ __device__ constexpr int packed_floats(int n) { return (n * (n + 1) / 2 + 3) & ~3; }
+
+// Floats of M: the forward pass's (n+1) x (n+1), or the back pass's two
+// packed factors, whichever is larger.
+__host__ __device__ constexpr int m_floats(int n) {
+  return (n + 1) * (n + 1) > 2 * packed_floats(n) ? (n + 1) * (n + 1) : 2 * packed_floats(n);
+}
+
+// Floats of shared memory one warp uses: CS, M and v, rounded up to a
+// multiple of 4 so that every warp's CS and M are 16-byte aligned.
+__host__ __device__ constexpr int warp_floats(int n) {
+  return (n * cs_pitch(n) + m_floats(n) + n + 3) & ~3;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// Starts the copy dst[i * ld + j] = src[i * n + j] of an n x n block from
+// device memory (cp.async; complete after cp_wait).  16-byte copies when
+// `vec4` (src 16-byte aligned) and n and ld are multiples of 4, else 4-byte
+// ones.  Each lane tracks the row of its elements incrementally.
+__device__ __forceinline__ void copy_block(float* dst, const float* __restrict__ src, int n,
+                                           int ld, bool vec4, int lane) {
+  const int nn = n * n, pad = ld - n;
+  if (vec4 && (n & 3) == 0 && (ld & 3) == 0) {
+    int off = 0, j = 4 * lane;
+    while (j >= n) { j -= n; off += pad; }
+    for (int e = 4 * lane; e < nn; e += 128) {
+      __pipeline_memcpy_async(dst + e + off, src + e, 16);
+      j += 128;
+      while (j >= n) { j -= n; off += pad; }
     }
-    __syncthreads();
+  } else {
+    int off = 0, j = lane;
+    while (j >= n) { j -= n; off += pad; }
+    for (int e = lane; e < nn; e += 32) {
+      __pipeline_memcpy_async(dst + e + off, src + e, 4);
+      j += 32;
+      while (j >= n) { j -= n; off += pad; }
+    }
+  }
+  __pipeline_commit();
+}
+
+// Starts the copy of `count` floats (a multiple of 4, both ends 16-byte
+// aligned) from device memory.
+__device__ __forceinline__ void copy_flat(float* dst, const float* __restrict__ src, int count,
+                                          int lane) {
+  for (int e = 4 * lane; e < count; e += 128) __pipeline_memcpy_async(dst + e, src + e, 16);
+  __pipeline_commit();
+}
+
+// Waits for the lane's copies; the __syncwarp that follows makes every
+// lane's copies visible to the warp.
+__device__ __forceinline__ void cp_wait() {
+  __pipeline_wait_prior(0);
+  __syncwarp();
+}
+
+// The lower triangle of S (pitch ld) to dst packed row by row:
+// dst[i (i + 1) / 2 + j] = S[i][j], j <= i.
+__device__ __forceinline__ void pack_lower(float* __restrict__ dst, const float* S, int n, int ld,
+                                           int lane) {
+  const int np = n * (n + 1) / 2;
+  int i = 0, j = lane;
+  while (j > i) { j -= i + 1; ++i; }
+  for (int p = lane; p < np; p += 32) {
+    dst[p] = S[i * ld + j];
+    j += 32;
+    while (j > i) { j -= i + 1; ++i; }
   }
 }
 
-// Row-wise forward substitution against the lower factor C: each of the
-// `rows` rows of M becomes row * C^-T, one thread per row.
-__device__ void forward_rows(float* M, const float* C, int rows, int n, int ld) {
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    float* row = M + r * ld;
-    for (int j = 0; j < n; ++j) {
-      float s = row[j];
-      for (int c = 0; c < j; ++c) s -= row[c] * C[j * ld + c];
-      row[j] = s / C[j * ld + j];
+// s[b] = Si[j0 + b] - sum_{c<j0} Si[c] R[b][c] for b < 4, subtracting in
+// the order c = 0, 1, ...: row Si and the rows R[b] read as float4 (all
+// 16-byte aligned, j0 a multiple of 4).
+__device__ __forceinline__ void row_block4(const float* Si, const float* const R[4], int j0,
+                                           float s[4]) {
+  const float4 h = ld4(Si + j0);
+  s[0] = h.x; s[1] = h.y; s[2] = h.z; s[3] = h.w;
+  for (int c = 0; c < j0; c += 4) {
+    const float4 a = ld4(Si + c);
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const float4 q = ld4(R[b] + c);
+      s[b] -= a.x * q.x;
+      s[b] -= a.y * q.y;
+      s[b] -= a.z * q.z;
+      s[b] -= a.w * q.w;
     }
   }
 }
 
-// In place v <- (C C^T)^-1 v, run by one warp.
-__device__ void chol_solve_vec_warp(const float* C, float* v, int n, int ld) {
-  const int lane = threadIdx.x & 31;
-  for (int j = 0; j < n; ++j) {
-    const float vj = v[j] / C[j * ld + j];
-    __syncwarp();
-    for (int i = j + 1 + lane; i < n; i += 32) v[i] -= C[i * ld + j] * vj;
-    if (lane == 0) v[j] = vj;
-    __syncwarp();
-  }
-  for (int j = n - 1; j >= 0; --j) {
-    const float xj = v[j] / C[j * ld + j];
-    __syncwarp();
-    for (int i = lane; i < j; i += 32) v[i] -= C[j * ld + i] * xj;
-    if (lane == 0) v[j] = xj;
-    __syncwarp();
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-btd_kernel(const float* __restrict__ D, const float* __restrict__ L,
-           const float* __restrict__ b, float* __restrict__ x,
-           float* __restrict__ Cg, int K, int n) {
-  extern __shared__ float smem[];
-  const int ld = n + 1;
-  float* C = smem;              // n x ld: factor of S_{k-1}
-  float* S = C + n * ld;        // n x ld: D_k -> S_k -> chol(S_k)
-  float* M = S + n * ld;        // (n+1) x ld: L_{k-1} -> M, y_{k-1} -> z
-  float* v = M + (n + 1) * ld;  // n: y_k in the forward pass, x_{k+1} in the back pass
-
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const int nn = n * n;
-  const size_t sc = blockIdx.x;
-  const float* Db = D + sc * K * nn;
-  const float* Lb = L + sc * (K - 1) * nn;
-  const float* bb = b + sc * K * n;
-  float* xb = x + sc * K * n;
-  float* Cb = Cg + sc * K * nn;
-
-  // ---- forward elimination ---------------------------------------------
-  for (int t = tid; t < nn; t += nt) S[(t / n) * ld + t % n] = Db[t];
-  for (int i = tid; i < n; i += nt) {
-    const float y = bb[i];
-    xb[i] = y;
-    v[i] = y;
-  }
-  __syncthreads();
-  chol_inplace(S, n, ld);
-  for (int t = tid; t < nn; t += nt) {
-    const int i = t / n, j = t % n;
-    if (j <= i) Cb[t] = S[i * ld + j];
-  }
-  { float* tmp = C; C = S; S = tmp; }
-  __syncthreads();
-
-  for (int k = 1; k < K; ++k) {
-    const float* Dk = Db + (size_t)k * nn;
-    const float* Lk = Lb + (size_t)(k - 1) * nn;
-    for (int t = tid; t < nn; t += nt) {
-      const int i = t / n, j = t % n;
-      S[i * ld + j] = Dk[t];
-      M[i * ld + j] = Lk[t];
+// In place: the lower triangle of S (pitch ld = cs_pitch(n)) becomes its
+// Cholesky factor C; when `spill` is not null, C is also written there,
+// packed row by row (row i at i (i + 1) / 2), straight from registers.
+// Left-looking in blocks of four columns j0..j0+3: for rows i >= j0,
+// subtract the finished columns c < j0 (row_block4, the four pivot rows as
+// float4 broadcasts); then every lane gathers the block's 4 x 4 diagonal
+// part by shuffle, factors it itself, and finishes its own rows:
+//   C[i][j] = (S[i][j] - sum_{c<j} C[i][c] C[j][c]) * rsqrt(max(pivot, 1e-12)).
+// The subtractions run in the order c = 0, 1, ..., the order in which the
+// plain version's right-looking updates reach S[i][j].  Block j0 gives row
+// i to lane (i - j0) mod 32, so while n - j0 <= 32 every lane has at most
+// one row.  Entries above the diagonal in the block's rows of S are
+// overwritten with values nobody reads.
+__device__ void chol_inplace(float* S, float* __restrict__ spill, int n, int ld, int lane) {
+  for (int j0 = 0; j0 < n; j0 += 4) {
+    const int nb = min(4, n - j0);
+    const float* R[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) R[b] = S + min(j0 + b, n - 1) * ld;
+    const int i0 = j0 + ((lane - j0) & 31);
+    const int i1 = i0 + 32;
+    float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+    if (i0 < n) row_block4(S + i0 * ld, R, j0, s0);
+    if (i1 < n) row_block4(S + i1 * ld, R, j0, s1);
+    // a[r][c] (c <= r): the diagonal block, from lane (j0 + r) mod 32, which owns row j0 + r.
+    float a[4][4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+#pragma unroll
+      for (int c = 0; c <= r; ++c) a[r][c] = __shfl_sync(kFull, s0[c], (j0 + r) & 31);
     }
-    for (int i = tid; i < n; i += nt) M[n * ld + i] = v[i];
-    __syncthreads();
-
-    forward_rows(M, C, n + 1, n, ld);  // M C^T = L_{k-1}; C z = y_{k-1}
-    __syncthreads();
-
-    const float* z = M + n * ld;
-    for (int t = tid; t < nn; t += nt) {
-      const int i = t / n, l = t % n;
-      if (l <= i) {
-        float s = S[i * ld + l];
-        for (int c = 0; c < n; ++c) s -= M[i * ld + c] * M[l * ld + c];
-        S[i * ld + l] = s;
+    float d[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      d[b] = rsqrtf(fmaxf(a[b][b], 1e-12f));
+#pragma unroll
+      for (int r = b + 1; r < 4; ++r) {
+        a[r][b] *= d[b];
+#pragma unroll
+        for (int c = b + 1; c <= r; ++c) a[r][c] -= a[r][b] * a[c][b];
       }
     }
-    for (int i = tid; i < n; i += nt) {
-      float s = bb[(size_t)k * n + i];
-      for (int c = 0; c < n; ++c) s -= M[i * ld + c] * z[c];
-      v[i] = s;
-      xb[(size_t)k * n + i] = s;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      s0[b] *= d[b];
+      s1[b] *= d[b];
+#pragma unroll
+      for (int r = b + 1; r < 4; ++r) {
+        s0[r] -= s0[b] * a[r][b];
+        s1[r] -= s1[b] * a[r][b];
+      }
     }
-    __syncthreads();
+    if (i0 < n) {
+      *reinterpret_cast<float4*>(S + i0 * ld + j0) = make_float4(s0[0], s0[1], s0[2], s0[3]);
+      if (spill) {
+        float* row = spill + i0 * (i0 + 1) / 2 + j0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if (b < nb && j0 + b <= i0) row[b] = s0[b];
+      }
+    }
+    if (i1 < n) {
+      *reinterpret_cast<float4*>(S + i1 * ld + j0) = make_float4(s1[0], s1[1], s1[2], s1[3]);
+      if (spill) {
+        float* row = spill + i1 * (i1 + 1) / 2 + j0;
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          if (b < nb) row[b] = s1[b];
+      }
+    }
+    __syncwarp();
+  }
+}
 
-    chol_inplace(S, n, ld);
-    float* Ck = Cb + (size_t)k * nn;
-    for (int t = tid; t < nn; t += nt) {
-      const int i = t / n, j = t % n;
-      if (j <= i) Ck[t] = S[i * ld + j];
+// Forward substitution against the lower factor C (pitch ldc, a multiple of
+// 4), row by row: row r of M (pitch ldm) becomes row r * C^-T,
+// M[r][j] = (M[r][j] - sum_{c<j} M[r][c] C[j][c]) / C[j][j], in blocks of
+// four columns: the columns c < j0 first, with the block's four rows of C
+// read as float4 broadcasts, then the block's small triangle; the
+// subtractions run in the order c = 0, 1, ..., j-1, and the division is a
+// multiplication by 1 / C[j][j], computed before the chain needs it.  Lane
+// l owns rows l and l + 32 (and row 64 = l + 64 at n = 64), which share the
+// reads of C; a lane without a second row runs the second chain on its
+// first row and drops it.
+__device__ void forward_rows(float* M, const float* C, int rows, int n, int ldm, int ldc,
+                             int lane) {
+  for (int base = 0; base + lane < rows; base += 64) {
+    float* R0 = M + (base + lane) * ldm;
+    const bool two = base + lane + 32 < rows;
+    float* R1 = two ? R0 + 32 * ldm : R0;
+    for (int j0 = 0; j0 < n; j0 += 4) {
+      const int nb = min(4, n - j0);
+      const float* Cr[4];
+      float s0[4], s1[4], rinv[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        Cr[b] = C + min(j0 + b, n - 1) * ldc;
+        rinv[b] = __fdividef(1.0f, Cr[b][min(j0 + b, n - 1)]);
+        s0[b] = b < nb ? R0[j0 + b] : 0.f;
+        s1[b] = b < nb ? R1[j0 + b] : 0.f;
+      }
+      for (int c = 0; c < j0; c += 4) {
+        const float a0[4] = {R0[c], R0[c + 1], R0[c + 2], R0[c + 3]};
+        const float a1[4] = {R1[c], R1[c + 1], R1[c + 2], R1[c + 3]};
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const float4 q = ld4(Cr[b] + c);
+          s0[b] -= a0[0] * q.x; s1[b] -= a1[0] * q.x;
+          s0[b] -= a0[1] * q.y; s1[b] -= a1[1] * q.y;
+          s0[b] -= a0[2] * q.z; s1[b] -= a1[2] * q.z;
+          s0[b] -= a0[3] * q.w; s1[b] -= a1[3] * q.w;
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        if (b < nb) {
+          s0[b] *= rinv[b];
+          s1[b] *= rinv[b];
+#pragma unroll
+          for (int b2 = b + 1; b2 < 4; ++b2) {
+            if (b2 < nb) {
+              const float cf = Cr[b2][j0 + b];
+              s0[b2] -= s0[b] * cf;
+              s1[b2] -= s1[b] * cf;
+            }
+          }
+          R0[j0 + b] = s0[b];
+          if (two) R1[j0 + b] = s1[b];
+        }
+      }
     }
-    { float* tmp = C; C = S; S = tmp; }
-    __syncthreads();
+  }
+}
+
+// S[i][l] = D[i][l] - sum_c M[i][c] M[l][c] on the lower triangle (l <= i),
+// with D in S (pitch lds, a multiple of 4) and M at pitch ldm: the sum is
+// taken first and subtracted once, as the plain version's D - M M^T.  The
+// triangle is cut into 4 x 4 tiles (T (T + 1) / 2 of them, T = ceil(n / 4))
+// and lane takes every 32nd tile: per column c it reads 4 + 4 values of M
+// for 16 FMAs.  D may still be on its way into S: the first tiles' sums
+// are taken before waiting for it.  Entries above the diagonal in diagonal
+// tiles are overwritten with values nobody reads; rows and columns past n
+// read row n - 1 and are dropped.
+__device__ void rank_update(float* S, const float* M, int n, int lds, int ldm, int lane) {
+  const int T = (n + 3) >> 2;
+  const int nt = T * (T + 1) / 2;
+  int ti = 0, tl = lane;
+  while (tl > ti) { tl -= ti + 1; ++ti; }
+  for (int t0 = 0; t0 < nt; t0 += 32) {
+    const bool active = t0 + lane < nt;
+    float acc[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+    }
+    if (active) {
+      const float* A[4];
+      const float* Bm[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        A[a] = M + min(4 * ti + a, n - 1) * ldm;
+        Bm[a] = M + min(4 * tl + a, n - 1) * ldm;
+      }
+#pragma unroll 2
+      for (int c = 0; c < n; ++c) {
+        float x[4], y[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) { x[a] = A[a][c]; y[a] = Bm[a][c]; }
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) acc[a][b] += x[a] * y[b];
+        }
+      }
+    }
+    if (t0 == 0) cp_wait();  // D in S
+    if (active) {
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        if (4 * ti + a < n) {
+          float* Sa = S + (4 * ti + a) * lds + 4 * tl;
+          const float4 d = ld4(Sa);
+          *reinterpret_cast<float4*>(Sa) = make_float4(d.x - acc[a][0], d.y - acc[a][1],
+                                                       d.z - acc[a][2], d.w - acc[a][3]);
+        }
+      }
+    }
+    tl += 32;
+    while (tl > ti) { tl -= ti + 1; ++ti; }
+  }
+}
+
+// In place (C C^T) u = r for the lane's entries r0 = r[lane] and
+// r1 = r[lane + 32], C packed row by row in P (row i at i (i + 1) / 2):
+// C w = r, then C^T u = w, each solved entry broadcast from its lane by
+// shuffle.  The order of operations is the plain version's (_solve_lower,
+// then _solve_upper_t), with the division by C[j][j] a multiplication by
+// its reciprocal, computed off the chain.  Packed rows put column j of 32
+// rows in 32 distinct banks (triangular numbers are distinct mod 32).
+__device__ void chol_solve_vec(const float* P, float& r0, float& r1, int n, int lane) {
+  const int e0 = lane, e1 = lane + 32;
+  const float* P0 = P + e0 * (e0 + 1) / 2;
+  const float* P1 = P + e1 * (e1 + 1) / 2;
+  int pj = 0;  // j (j + 1) / 2
+  for (int j = 0; j < n; ++j) {
+    const float rinv = __fdividef(1.0f, P[pj + j]);
+    const float mine = (j & 32) ? r1 : r0;
+    const float wj = __shfl_sync(kFull, mine, j & 31) * rinv;
+    if (e0 > j && e0 < n) r0 -= P0[j] * wj;
+    if (e1 > j && e1 < n) r1 -= P1[j] * wj;
+    if (lane == (j & 31)) {
+      if (j & 32) r1 = wj; else r0 = wj;
+    }
+    pj += j + 1;
+  }
+  for (int j = n - 1; j >= 0; --j) {
+    pj -= j + 1;
+    const float* Pj = P + pj;
+    const float rinv = __fdividef(1.0f, Pj[j]);
+    const float mine = (j & 32) ? r1 : r0;
+    const float uj = __shfl_sync(kFull, mine, j & 31) * rinv;
+    if (e0 < j) r0 -= Pj[e0] * uj;
+    if (e1 < j) r1 -= Pj[e1] * uj;
+    if (lane == (j & 31)) {
+      if (j & 32) r1 = uj; else r0 = uj;
+    }
+  }
+}
+
+// One scenario on one warp.  Db, Lb, bb, xb, Cb point at the scenario's
+// slices; CS, M, v at the warp's shared memory.
+__device__ void solve_scenario(const float* __restrict__ Db, const float* __restrict__ Lb,
+                               const float* __restrict__ bb, float* __restrict__ xb,
+                               float* __restrict__ Cb, float* CS, float* M, float* v,
+                               int K, int n, bool vec4, int lane) {
+  const int lds = cs_pitch(n), ldm = n + 1, npk = packed_floats(n);
+  const size_t nn = (size_t)n * n;
+  const bool has0 = lane < n, has1 = lane + 32 < n;
+  float* z = M + n * ldm;
+
+  // ---- forward elimination ---------------------------------------------
+  copy_block(CS, Db, n, lds, vec4, lane);
+  if (K > 1) copy_block(M, Lb, n, ldm, vec4, lane);
+  for (int i = lane; i < n; i += 32) {
+    const float y = bb[i];
+    v[i] = y;
+    xb[i] = y;
+  }
+  cp_wait();
+  chol_inplace(CS, K > 1 ? Cb : nullptr, n, lds, lane);
+
+  for (int k = 1; k < K; ++k) {
+    // L_{k-1} is in M (copied during the last Cholesky); C_{k-1} in CS.
+    const float* bk = bb + (size_t)k * n;
+    const float b0 = has0 ? bk[lane] : 0.f, b1 = has1 ? bk[lane + 32] : 0.f;
+    for (int i = lane; i < n; i += 32) z[i] = v[i];
+    cp_wait();
+    forward_rows(M, CS, n + 1, n, ldm, lds, lane);  // M C^T = L_{k-1}; C z = y_{k-1}
+    __syncwarp();
+
+    copy_block(CS, Db + k * nn, n, lds, vec4, lane);  // waited for in rank_update
+    // y_k = b_k - M z: lanes own rows; a lane without a second row runs
+    // the second chain on its first row and drops it.
+    float* yk = xb + (size_t)k * n;
+    if (has0) {
+      const float* M0 = M + lane * ldm;
+      const float* M1 = has1 ? M0 + 32 * ldm : M0;
+      float s0 = b0, s1 = b1;
+#pragma unroll 4
+      for (int c = 0; c < n; ++c) {
+        const float zc = z[c];
+        s0 -= M0[c] * zc;
+        s1 -= M1[c] * zc;
+      }
+      v[lane] = s0;
+      yk[lane] = s0;
+      if (has1) {
+        v[lane + 32] = s1;
+        yk[lane + 32] = s1;
+      }
+    }
+    rank_update(CS, M, n, lds, ldm, lane);  // S_k = D_k - M M^T
+    __syncwarp();
+    if (k + 1 < K) copy_block(M, Lb + k * nn, n, ldm, vec4, lane);
+    chol_inplace(CS, k + 1 < K ? Cb + (size_t)k * npk : nullptr, n, lds, lane);
   }
 
   // ---- back substitution -------------------------------------------------
-  if (tid < 32) chol_solve_vec_warp(C, v, n, ld);
-  __syncthreads();
-  for (int i = tid; i < n; i += nt) xb[(size_t)(K - 1) * n + i] = v[i];
-  __syncthreads();
-
-  float* w = M;  // rhs scratch
-  for (int k = K - 2; k >= 0; --k) {
-    const float* Ck = Cb + (size_t)k * nn;
-    const float* Lk = Lb + (size_t)k * nn;
-    for (int t = tid; t < nn; t += nt) {
-      const int i = t / n, j = t % n;
-      if (j <= i) C[i * ld + j] = Ck[t];
-    }
-    for (int c = tid; c < n; c += nt) {
-      float s = xb[(size_t)k * n + c];  // y_k
-      for (int r = 0; r < n; ++r) s -= Lk[r * n + c] * v[r];
-      w[c] = s;
-    }
-    __syncthreads();
-    if (tid < 32) chol_solve_vec_warp(C, w, n, ld);
-    __syncthreads();
-    for (int i = tid; i < n; i += nt) {
-      xb[(size_t)k * n + i] = w[i];
-      v[i] = w[i];
-    }
-    __syncthreads();
+  // CS holds C_{K-1}; v holds y_{K-1}.  The factors come back packed into
+  // the two halves of M, L_k into CS, each copy started a step ahead.  Each
+  // lane reads and writes only its own entries of v until the __syncwarp
+  // that ends a step.
+  float* const P1 = M + npk;  // C_{K-1}, C_{K-3}, ...; M holds C_{K-2}, C_{K-4}, ...
+  pack_lower(P1, CS, n, lds, lane);
+  float* xk = xb + (size_t)(K - 1) * n;
+  const float* ynext = xb + (size_t)(K > 1 ? K - 2 : 0) * n;
+  float y0 = has0 ? ynext[lane] : 0.f, y1 = has1 ? ynext[lane + 32] : 0.f;
+  float r0 = has0 ? v[lane] : 0.f;
+  float r1 = has1 ? v[lane + 32] : 0.f;
+  __syncwarp();
+  if (K > 1) {
+    copy_flat(M, Cb + (size_t)(K - 2) * npk, npk, lane);
+    copy_block(CS, Lb + (size_t)(K - 2) * nn, n, lds, vec4, lane);
   }
+  chol_solve_vec(P1, r0, r1, n, lane);
+  if (has0) { xk[lane] = r0; v[lane] = r0; }
+  if (has1) { xk[lane + 32] = r1; v[lane + 32] = r1; }
+  __syncwarp();
+
+  for (int k = K - 2; k >= 0; --k) {
+    const int odd = (K - 2 - k) & 1;
+    cp_wait();  // L_k in CS, C_k in M (odd = 0) or P1 (odd = 1)
+    // rhs = y_k - L_k^T x_{k+1}: lanes own columns.
+    r0 = y0;
+    r1 = y1;
+    if (k > 0) {
+      ynext = xb + (size_t)(k - 1) * n;
+      y0 = has0 ? ynext[lane] : 0.f;
+      y1 = has1 ? ynext[lane + 32] : 0.f;
+    }
+    if (has1) {
+#pragma unroll 4
+      for (int r = 0; r < n; ++r) {
+        const float vr = v[r];
+        r0 -= CS[r * lds + lane] * vr;
+        r1 -= CS[r * lds + lane + 32] * vr;
+      }
+    } else if (has0) {
+#pragma unroll 4
+      for (int r = 0; r < n; ++r) r0 -= CS[r * lds + lane] * v[r];
+    }
+    __syncwarp();
+    if (k > 0) {
+      copy_block(CS, Lb + (size_t)(k - 1) * nn, n, lds, vec4, lane);
+      copy_flat(odd ? M : P1, Cb + (size_t)(k - 1) * npk, npk, lane);
+    }
+    chol_solve_vec(odd ? P1 : M, r0, r1, n, lane);
+    xk = xb + (size_t)k * n;
+    if (has0) { xk[lane] = r0; v[lane] = r0; }
+    if (has1) { xk[lane + 32] = r1; v[lane + 32] = r1; }
+    __syncwarp();
+  }
+}
+
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+btd_kernel(const float* __restrict__ D, const float* __restrict__ L,
+           const float* __restrict__ b, float* __restrict__ x,
+           float* __restrict__ Cp, int B, int K, int n, int vec4) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* CS = smem + warp * warp_floats(n);
+  float* M = CS + n * cs_pitch(n);
+  float* v = M + m_floats(n);
+  const size_t nn = (size_t)n * n, npk = packed_floats(n);
+  for (size_t s = (size_t)blockIdx.x * kWarps + warp; s < (size_t)B;
+       s += (size_t)gridDim.x * kWarps) {
+    solve_scenario(D + s * K * nn, L + s * (K - 1) * nn, b + s * K * n, x + s * K * n,
+                   Cp + s * (K - 1) * npk, CS, M, v, K, n, vec4 != 0, lane);
+    __syncwarp();
+  }
+}
+
+// Sets the kernel's shared-memory attributes for width n and returns how
+// many of its blocks fit on one SM (0 on error, with *err set).
+int blocks_per_sm(size_t smem, cudaError_t* err) {
+  *err = cudaFuncSetAttribute(btd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (*err != cudaSuccess) return 0;
+  *err = cudaFuncSetAttribute(btd_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+  if (*err != cudaSuccess) return 0;
+  int blocks = 0;
+  *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, btd_kernel, kWarps * 32, smem);
+  if (*err == cudaSuccess && blocks < 1) *err = cudaErrorInvalidConfiguration;
+  return *err == cudaSuccess ? blocks : 0;
 }
 
 }  // namespace
 
 extern "C" size_t btd_smem_bytes(int n) {
-  return sizeof(float) * ((size_t)(3 * n + 1) * (n + 1) + n);
+  return sizeof(float) * (size_t)kWarps * warp_floats(n);
 }
 
-// Launches one solve on `stream`; returns cudaGetLastError() after the
-// launch (0 when it was accepted).
+// Floats per factor in the scratch C: n(n+1)/2 rounded up to a multiple of 4.
+extern "C" int btd_packed_floats(int n) { return packed_floats(n); }
+
+// Warps of btd_kernel resident on one SM at width n (its occupancy), or
+// minus a CUDA error code.
+extern "C" int btd_resident_warps(int n) {
+  if (n <= 0 || n > kMaxN) return -(int)cudaErrorInvalidValue;
+  cudaError_t err;
+  const int blocks = blocks_per_sm(btd_smem_bytes(n), &err);
+  return blocks > 0 ? blocks * kWarps : -(int)err;
+}
+
+// Launches one solve on `stream`; returns the launch's CUDA error (0 when
+// it was accepted).  C is 16-byte aligned, with room for
+// btd_packed_floats(n) floats per factor.
 extern "C" int btd_solve_f32(const void* D, const void* L, const void* b, void* x,
                              void* C, int B, int K, int n, void* stream) {
-  if (B <= 0 || K <= 0 || n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
+  if (B <= 0 || K <= 0 || n <= 0 || n > kMaxN || (uintptr_t)C % 16 != 0)
+    return (int)cudaErrorInvalidValue;
   const size_t smem = btd_smem_bytes(n);
-  cudaError_t err = cudaFuncSetAttribute(
-      btd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  btd_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)D, (const float*)L, (const float*)b, (float*)x, (float*)C, K, n);
-  return (int)cudaGetLastError();
+  cudaError_t err;
+  const int per_sm = blocks_per_sm(smem, &err);
+  if (per_sm == 0) return (int)err;
+  int dev = 0, sms = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return (int)err;
+  const long long want = ((long long)B + kWarps - 1) / kWarps;
+  const long long cap = (long long)per_sm * sms;
+  const int grid = (int)(want < cap ? want : cap);
+  int vec4 = ((uintptr_t)D % 16 == 0) && ((uintptr_t)L % 16 == 0) ? 1 : 0;
+  const float* Df = static_cast<const float*>(D);
+  const float* Lf = static_cast<const float*>(L);
+  const float* bf = static_cast<const float*>(b);
+  float* xf = static_cast<float*>(x);
+  float* Cf = static_cast<float*>(C);
+  void* args[] = {&Df, &Lf, &bf, &xf, &Cf, &B, &K, &n, &vec4};
+  err = cudaLaunchKernel(reinterpret_cast<const void*>(&btd_kernel), dim3(grid), dim3(kWarps * 32),
+                         args, smem, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
 }

@@ -1,0 +1,198 @@
+// A CPU stand-in for the part of the CUDA runtime and device library that
+// qtos_torch/csrc/btd.cu uses, so that the kernel's own source compiles with
+// a host C++ compiler and runs on the CPU (tests/test_torch_btd_emu.py).
+//
+// Each CUDA thread is a std::thread; the blocks of a launch run one after
+// another, all threads of a block at once.  __syncwarp and the shuffles meet
+// at a barrier of the warp's 32 threads, so a __syncwarp that not every lane
+// reaches hangs (and is reported after a timeout) instead of passing.
+//
+// A cp.async copy fills its destination with NaN when it is issued and
+// copies only when __pipeline_wait_prior completes its batch, so a read of
+// the destination before the wait reads NaN, and a write there before the
+// wait is overwritten by the copy.  A 16-byte copy checks its alignment,
+// and a thread that ends with copies not waited for aborts.
+//
+// The card has 2 SMs that hold 1 block each, so that small batches already
+// walk the grid more than once.
+//
+// The including file defines EmuKernelSig, the kernel's signature, and the
+// dynamic shared memory `smem4`, before it includes the kernel's source.
+#pragma once
+
+#include <chrono>
+#include <cmath>
+#include <condition_variable>
+#include <cstddef>
+#include <cstdint>
+#include <cstdio>
+#include <cstdlib>
+#include <cstring>
+#include <deque>
+#include <mutex>
+#include <thread>
+#include <utility>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__
+
+struct dim3 {
+  unsigned x = 1, y = 1, z = 1;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct alignas(16) float4 {
+  float x, y, z, w;
+};
+inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
+inline int min(int a, int b) { return a < b ? a : b; }
+
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
+enum cudaFuncAttribute {
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaFuncAttributePreferredSharedMemoryCarveout = 9
+};
+enum { cudaSharedmemCarveoutMaxShared = 100 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+
+// The 32 threads of one warp.
+struct EmuWarp {
+  std::mutex m;
+  std::condition_variable cv;
+  int count = 0, gen = 0;
+  float slot[32];
+
+  void wait() {
+    std::unique_lock<std::mutex> lk(m);
+    const int g = gen;
+    if (++count == 32) {
+      count = 0;
+      ++gen;
+      cv.notify_all();
+      return;
+    }
+    if (!cv.wait_for(lk, std::chrono::seconds(60), [&] { return gen != g; })) {
+      std::fprintf(stderr, "cuda_emu: a warp barrier timed out (a divergent __syncwarp?)\n");
+      std::abort();
+    }
+  }
+};
+inline thread_local EmuWarp* emu_warp = nullptr;
+
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp->wait(); }
+
+inline float __shfl_sync(unsigned, float v, int src) {
+  emu_warp->wait();
+  emu_warp->slot[threadIdx.x & 31] = v;
+  emu_warp->wait();
+  const float r = emu_warp->slot[src & 31];
+  emu_warp->wait();
+  return r;
+}
+
+// One thread's cp.async copies: those issued since its last commit, and
+// the committed batches, oldest first.
+struct EmuCopy {
+  void* dst;
+  const void* src;
+  size_t n;
+};
+struct EmuPipeline {
+  std::vector<EmuCopy> open;
+  std::deque<std::vector<EmuCopy>> batches;
+};
+inline thread_local EmuPipeline emu_pipe;
+
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n, size_t = 0) {
+  if ((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) % n != 0) {
+    std::fprintf(stderr, "cuda_emu: misaligned %zu-byte cp.async\n", n);
+    std::abort();
+  }
+  std::memset(dst, 0xff, n);  // NaNs until the copy is waited for
+  emu_pipe.open.push_back({dst, src, n});
+}
+inline void __pipeline_commit() {
+  emu_pipe.batches.push_back(std::move(emu_pipe.open));
+  emu_pipe.open.clear();
+}
+// Completes all but the `prior` most recently committed batches.
+inline void __pipeline_wait_prior(size_t prior) {
+  while (emu_pipe.batches.size() > prior) {
+    for (const EmuCopy& c : emu_pipe.batches.front()) std::memcpy(c.dst, c.src, c.n);
+    emu_pipe.batches.pop_front();
+  }
+}
+
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline float __fdividef(float a, float b) { return a / b; }
+
+constexpr size_t kEmuSmemBytes = 232448;  // the most a block may ask for on an H100
+constexpr int kEmuBlocksPerSm = 1;
+constexpr int kEmuSms = 2;
+
+template <class T>
+cudaError_t cudaFuncSetAttribute(T*, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+template <class T>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* blocks, T, int, size_t smem) {
+  *blocks = smem <= kEmuSmemBytes ? kEmuBlocksPerSm : 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetDevice(int* dev) {
+  *dev = 0;
+  return cudaSuccess;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
+  *value = kEmuSms;
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+
+extern float* emu_smem_base;
+
+template <class F>
+struct EmuArity;
+template <class R, class... A>
+struct EmuArity<R(A...)> {
+  static constexpr size_t value = sizeof...(A);
+};
+
+template <class... A, size_t... I>
+void emu_call(void (*f)(A...), void** args, std::index_sequence<I...>) {
+  f(*static_cast<A*>(args[I])...);
+}
+
+inline cudaError_t cudaLaunchKernel(const void* func, dim3 grid, dim3 block, void** args,
+                                    size_t smem, cudaStream_t) {
+  if (smem > kEmuSmemBytes || block.x % 32 != 0) return cudaErrorInvalidConfiguration;
+  auto* f = reinterpret_cast<EmuKernelSig*>(const_cast<void*>(func));
+  for (unsigned bx = 0; bx < grid.x; ++bx) {
+    std::memset(emu_smem_base, 0xff, smem);  // NaNs, as uninitialised shared memory may hold
+    std::vector<EmuWarp> warps(block.x / 32);
+    std::vector<std::thread> threads;
+    for (unsigned t = 0; t < block.x; ++t) {
+      threads.emplace_back([&, t] {
+        threadIdx = dim3(t);
+        blockIdx = dim3(bx);
+        blockDim = block;
+        gridDim = grid;
+        emu_warp = &warps[t / 32];
+        emu_call(f, args, std::make_index_sequence<EmuArity<EmuKernelSig>::value>{});
+        if (!emu_pipe.open.empty() || !emu_pipe.batches.empty()) {
+          std::fprintf(stderr, "cuda_emu: a thread ended with cp.async copies not waited for\n");
+          std::abort();
+        }
+      });
+    }
+    for (auto& th : threads) th.join();
+  }
+  return cudaSuccess;
+}

@@ -7,6 +7,9 @@ raises); on a CPU tensor it runs the plain version,
 
 The kernel is compiled with `nvcc` for sm_90a at first use into
 `qtos_torch/_build/` (keyed by the source's hash) and loaded with ctypes.
+It solves one scenario per warp; its scratch holds the factors C_0 .. C_{K-2}
+of each scenario, lower triangles packed: (B, K-1, n(n+1)/2 rounded up to a
+multiple of 4) floats.
 """
 
 from __future__ import annotations
@@ -75,8 +78,25 @@ def _load():
             lib.btd_solve_f32.argtypes = [vp, vp, vp, vp, vp,
                                           ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
             lib.btd_solve_f32.restype = ctypes.c_int
+            lib.btd_resident_warps.argtypes = [ctypes.c_int]
+            lib.btd_resident_warps.restype = ctypes.c_int
+            lib.btd_smem_bytes.argtypes = [ctypes.c_int]
+            lib.btd_smem_bytes.restype = ctypes.c_size_t
+            lib.btd_packed_floats.argtypes = [ctypes.c_int]
+            lib.btd_packed_floats.restype = ctypes.c_int
             _lib = lib
     return _lib
+
+
+def occupancy(n: int) -> dict:
+    """The kernel's occupancy on the current CUDA device at block width n:
+    resident warps (= scenarios in flight) per SM and dynamic shared memory
+    per block in bytes."""
+    lib = _load()
+    warps = lib.btd_resident_warps(n)
+    if warps <= 0:
+        raise RuntimeError(f"btd occupancy query failed: CUDA error {-warps}")
+    return {"warps_per_sm": warps, "smem_per_block": int(lib.btd_smem_bytes(n))}
 
 
 def _check(D, L, b):
@@ -119,8 +139,8 @@ def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     x = torch.empty_like(b)
     if B == 0:
         return x
-    scratch = torch.empty_like(D)
     lib = _load()
+    scratch = torch.empty((B, K - 1, lib.btd_packed_floats(n)), dtype=D.dtype, device=D.device)
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream(D.device).cuda_stream
         err = lib.btd_solve_f32(

@@ -8,6 +8,12 @@ port is installed:
 
 Tolerance atol=5e-4 as tests/test_pallas_btd.py: float32 block Thomas on
 diagonally dominant systems with O(1) solutions.
+
+The kernel solves one scenario per warp, four warps per block, and walks the
+batch by grid stride over the blocks that fit on the card at once (about
+2640 scenarios on an H100 at n=36), and gives each lane rows l and l + 32.
+The shapes cover those edges: B not a multiple of 4, B beyond one pass of
+the grid, n around 32 and at the limit 64, and K = 1, 2.
 """
 
 import numpy as np
@@ -39,7 +45,16 @@ def _system(B, K, n, seed, dev):
 
 @pytest.mark.parametrize(
     "B,K,n",
-    [(3, 7, 12), (2, 5, 36), (1, 9, 5), (5, 4, 6), (64, 41, 36), (3, 2, 64), (2, 1, 36)],
+    [
+        (3, 7, 12), (2, 5, 36), (1, 9, 5), (5, 4, 6), (64, 41, 36), (3, 2, 64), (2, 1, 36),
+        # B = 1, 7, 9 (not multiples of the 4 warps of a block) and B = 3000,
+        # more scenarios than an H100 holds in flight, so the grid stride wraps
+        (1, 4, 36), (7, 3, 36), (9, 3, 36), (3000, 3, 36),
+        # n at the lanes' edges: one row per lane, 32, one more, two per lane
+        (4, 3, 31), (4, 3, 32), (4, 3, 33), (2, 4, 64),
+        # K = 1 and K = 2
+        (5, 1, 7), (5, 2, 36),
+    ],
 )
 def test_kernel_matches_plain(cuda, B, K, n):
     D, L, b, xt = _system(B, K, n, 5, cuda)
@@ -49,6 +64,29 @@ def test_kernel_matches_plain(cuda, B, K, n):
     assert btd_solve.launches == before + 1
     torch.testing.assert_close(x, block_tridiag_solve(D, L, b), rtol=0, atol=ATOL)
     torch.testing.assert_close(x, xt, rtol=0, atol=ATOL)
+
+
+def test_kernel_pivot_clamp(cuda):
+    """Row and column 3 of D_0 are zero but for the diagonal, set to 1e-13,
+    below the 1e-12 clamp, and column 3 of L_0 is zero, so row 3 of H is
+    decoupled.  (An exact zero pivot would give the factor a zero diagonal
+    entry, 0 * rsqrt(1e-12), which both versions divide by.)  The clamp
+    makes C_33 = 1e-13 * rsqrt(1e-12) = 1e-7, so x_3 = b_3 / C_33^2 is no
+    longer the exact solution, but both versions compute it by the same
+    steps: it must be finite and agree to rtol 1e-4, which covers the few
+    ulp of rsqrt and two divisions it carries; the rest of x is an ordinary
+    solve held at ATOL."""
+    D, L, _, xt = _system(3, 4, 12, 8, cuda)
+    D[:, 0, 3, :] = 0
+    D[:, 0, :, 3] = 0
+    D[:, 0, 3, 3] = 1e-13
+    L[:, 0, :, 3] = 0
+    b = block_tridiag_matvec(D, L, xt).contiguous()
+    x = btd_solve(D, L, b)
+    xp = block_tridiag_solve(D, L, b)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(xp).all())
+    torch.testing.assert_close(x, xp, rtol=1e-4, atol=ATOL)
 
 
 def test_kernel_rejects_wide_blocks(cuda):
