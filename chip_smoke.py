@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of qtos_torch on one CUDA card: builds the kernel from the
 checkout, holds it against its plain PyTorch version, drives the batched
-gait-NLP solve at bench width, and checks the results.
+gait-NLP solve at bench width, plays solved trajectories through the physics,
+probes a feasibility map and plans over it, and checks the results.
 
     python3 chip_smoke.py
 
@@ -17,7 +18,15 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   4. the main path: solve_batch on the bench distribution (plane x3, K=41,
      goals 0.3..0.8, max_iters=3, rescue_iters=12) at B=1024 and B=8192,
      with the kernel's launch counter, convergence and the 1 kHz table;
-  5. the port on CUDA against the port on CPU at B=64, K=41.
+  5. the port on CUDA against the port on CPU at B=64, K=41;
+  6. physics playback: (a) the library quick start (plan, solve, sample,
+     500 warm-up ticks, 1 kHz playback) on the card; (b) 256 episodes of
+     phase 4's B=1024 result played in one batched call, with wall time, ms
+     per tick and episode-ticks per second; (c) 4 of those episodes, 500
+     ticks, on the card against the CPU;
+  7. planner: the solver-probed feasibility map of the pillar tile (one
+     solve_batch over every candidate hop, K=25), the kernel's launches and
+     the failed hops, then A* and the global planner over that map.
 The second-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -48,6 +57,174 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 KERNEL_ATOL = 5e-4          # random diagonally dominant systems, O(1) solutions
 SHAPES = [(3, 7, 12), (2, 5, 36), (1, 9, 5), (5, 4, 6), (8192, 41, 36)]
+
+
+def _synced(dev) -> float:
+    """The host clock once the device has drained its queue."""
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return time.perf_counter()
+
+
+def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) -> None:
+    """Phase 6.  `x` (B, K, NV) and `specs` are solved windows on `terrain`
+    (phase 4's, every fourth scenario)."""
+    import torch
+
+    from qtos_torch.control import ControlParams, playback, stance_warmup
+    from qtos_torch.control.loop import state_from_row
+    from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve
+    from qtos_torch.solver.spec import index_spec, map_tensors
+    from qtos_torch.terrain import make_terrain
+
+    params = ControlParams()
+
+    def episode(tables, terr):
+        """Warm-up and playback; (final, metrics, warm-up s, playback s)."""
+        t0 = _synced(tables.device)
+        s0 = stance_warmup(state_from_row(tables[..., 0, :], terr, params), terr, params, warmup)
+        t1 = _synced(tables.device)
+        final, m = playback(tables, s0, terr, params)
+        return final, m, t1 - t0, _synced(tables.device) - t1
+
+    # 6a: the library quick start
+    t0 = time.time()
+    terr2 = make_terrain(["plane", "plane"], device=dev)
+    spec = default_spec(terr2, goal_xy=(0.5, 0.0), K=33, device=dev)
+    res = solve(spec, terr2, SolverConfig(max_iters=30))
+    status = int(res.status)
+    table, _ = sample_trajectory(res.x, spec)
+    final, m, warm_s, play_s = episode(table, terr2)
+    T1 = table.shape[0]
+    ms_tick_1 = play_s / T1 * 1e3
+    plan_end = table[-1, 1:4].cpu()
+    pos = final.pos.cpu()
+    err_s = float(m.avg_com_err_per_s)
+    line = (f"# phase 6a quick start (K=33, {T1} rows): status {status}, avg_com_err_per_s {err_s:.2f}, "
+            f"final pos ({pos[0]:.4f}, {pos[1]:.4f}, {pos[2]:.4f}) vs plan end "
+            f"({plan_end[0]:.4f}, {plan_end[1]:.4f}, {plan_end[2]:.4f}); warm-up {warmup} ticks "
+            f"{warm_s:.2f} s, playback {play_s:.2f} s = {ms_tick_1:.3f} ms per tick at B=1 on {card}")
+    if not (status == 0 and err_s < 60.0 and abs(float(pos[0] - plan_end[0])) < 0.12
+            and abs(float(pos[2] - plan_end[2])) < 0.03):
+        fail(line)
+    log(line + f" ({time.time() - t0:.1f} s)")
+
+    # 6b: full width, B episodes in one batched call
+    t0 = time.time()
+    B = x.shape[0]
+    tables = torch.stack([sample_trajectory(x[i], index_spec(specs, i))[0] for i in range(B)])
+    T = tables.shape[1]
+    final, m, warm_s, play_s = episode(tables, terrain)
+    finite = all(bool(torch.isfinite(t).all()) for t in
+                 (m.com_err, m.ee_err, m.pos, m.feet, m.yaw, final.pos, final.q, final.qd))
+    goal_x = specs.goal_r[:, 0]
+    z_ok = bool(((final.pos[:, 2] > 0.1) & (final.pos[:, 2] < 0.4)).all())
+    x_ok = bool((final.pos[:, 0] > 0.5 * goal_x).all())
+    mean_err = m.com_err.mean(dim=-1)
+    ms_tick = play_s / T * 1e3
+    line = (f"# phase 6b playback B={B} (K={x.shape[1]}, tables {tuple(tables.shape)}): warm-up {warmup} ticks "
+            f"{warm_s:.2f} s, playback {play_s:.2f} s = {ms_tick:.3f} ms per tick, "
+            f"{B * T / play_s:.0f} episode-ticks/s (B=1: {ms_tick_1:.3f} ms per tick) on {card}; "
+            f"finite {finite}, final z in [{float(final.pos[:, 2].min()):.3f}, {float(final.pos[:, 2].max()):.3f}], "
+            f"min final x / goal {float((final.pos[:, 0] / goal_x).min()):.3f}, "
+            f"mean com_err max {float(mean_err.max()):.4f} m, "
+            f"avg_com_err_per_s in [{float(m.avg_com_err_per_s.min()):.2f}, {float(m.avg_com_err_per_s.max()):.2f}]")
+    if not (finite and z_ok and x_ok and bool((mean_err < 0.15).all())):
+        fail(line)
+    log(line + f" ({time.time() - t0:.1f} s)")
+
+    # 6c: the card against the CPU on 4 of those episodes
+    t0 = time.time()
+    short = tables[:4, :compare_ticks]
+    cpu_terr = map_tensors(terrain, lambda t: t.cpu())
+    f_dev, m_dev, _, _ = episode(short, terrain)
+    f_cpu, m_cpu, _, _ = episode(short.cpu(), cpu_terr)
+    dpos = float((f_dev.pos.cpu() - f_cpu.pos).abs().max())
+    dq = float((f_dev.q.cpu() - f_cpu.q).abs().max())
+    rel = float(((m_dev.avg_com_err_per_s.cpu() - m_cpu.avg_com_err_per_s).abs()
+                 / m_cpu.avg_com_err_per_s).max())
+    line = (f"# phase 6c CUDA vs CPU, 4 episodes, {warmup} warm-up + {short.shape[1]} ticks: max |dpos| {dpos:.3e} m, "
+            f"max |dq| {dq:.3e} rad, avg_com_err_per_s differs by {100 * rel:.3f} %")
+    if not (dpos <= 5e-3 and dq <= 2e-2 and rel <= 0.05):
+        fail(line)
+    log(line + f" ({time.time() - t0:.1f} s)")
+
+
+def phase_planner(dev, card) -> None:
+    """Phase 7."""
+    import numpy as np
+    import torch
+
+    from qtos_torch.ops.btd import btd_solve
+    from qtos_torch.planner import GlobalPlanner, astar, feasibility_map
+    from qtos_torch.planner import feasibility as feas
+    from qtos_torch.solver import SolverConfig, solve_batch
+    from qtos_torch.terrain import make_terrain
+
+    t0 = time.time()
+    tiles, goal, K, max_iters = ["feasibility", "plane"], (2.6, 0.0), 25, 25
+    terrain = make_terrain(tiles, device=dev)
+    cfg = SolverConfig(max_iters=max_iters, tol=6e-3)
+    probe = {}
+
+    def recording_solve_batch(specs, terr, cfg_):
+        probe["specs"] = specs
+        probe["res"] = solve_batch(specs, terr, cfg_)
+        return probe["res"]
+
+    feas.solve_batch = recording_solve_batch
+    try:
+        before = btd_solve.launches
+        t1 = _synced(dev)
+        fmap = feasibility_map(terrain, cfg=cfg, K=K)
+        probe_s = _synced(dev) - t1
+        launches = btd_solve.launches - before
+    finally:
+        feas.solve_batch = solve_batch
+    res = probe["res"]
+    n_pairs = int(res.status.numel())
+    obst = torch.maximum(res.viol["terrain"], res.viol["body"])
+    n_failed = int((obst >= 3e-2).sum())
+    n_unconverged = int((res.status != 0).sum())
+
+    grid = terrain.height.cpu().numpy()
+    blocked = fmap > 0.5
+    H, W = blocked.shape
+    route = astar(blocked, (H // 2, 0), (H // 2, W - 2))
+    line = (f"# phase 7 feasibility probe {'+'.join(tiles)} (K={K}, max_iters={max_iters}): {n_pairs} pairs, "
+            f"{n_failed} failed the obstacle gate, {n_unconverged} unconverged at tol {cfg.tol}, "
+            f"btd launches {launches}, {probe_s:.3f} s on {card}; {int(blocked.sum())}/{blocked.size} cells blocked")
+    if dev.type == "cuda" and launches < max_iters:
+        fail(line + f": the probe launched the kernel {launches} times, < max_iters {max_iters}")
+    if not blocked[grid > 0.1].all():
+        fail(line + ": a pillar cell is not blocked")
+    if blocked.all(axis=0).any():
+        fail(line + ": some column is fully blocked")
+    if route is None:
+        fail(line + ": the map sealed the corridor shut")
+    log(line)
+
+    # The rescue pass on the probe's windows: its first scenarios that fail
+    # pass 1 (phase 4's distribution converges whole, so it never enters).
+    t1 = _synced(dev)
+    res2 = solve_batch(probe["specs"], terrain, cfg.replace(rescue_iters=12))
+    rescue_s = _synced(dev) - t1
+    n_rescued = n_unconverged - int((res2.status != 0).sum())
+    log(f"# phase 7 rescue pass on the probe's windows (rescue_iters=12): {n_unconverged} gathered, "
+        f"{n_rescued} converged by it, {rescue_s:.3f} s on {card}")
+    if not bool(torch.isfinite(res2.x).all()):
+        fail("phase 7: non-finite solution after the rescue pass")
+
+    planner = GlobalPlanner(terrain, (0.0, 0.0), goal, blocked=fmap)
+    x, y, yaw = planner.point_at(np.linspace(0.0, planner.total_time, 200))
+    path = torch.stack([x, y, yaw], dim=1).cpu().numpy()
+    line = (f"# phase 7 planner: path length {planner.path_length:.3f} m, {planner.total_time:.2f} s, "
+            f"max |y| {np.abs(path[:, 1]).max():.3f} m, ends at ({path[-1, 0]:.4f}, {path[-1, 1]:.4f})")
+    if not (np.isfinite(path).all() and abs(path[-1, 0] - goal[0]) < 1e-3 and abs(path[-1, 1] - goal[1]) < 1e-3):
+        fail(line)
+    log(line + f" (phase 7 done in {time.time() - t0:.1f} s)")
 
 
 def main() -> None:
@@ -230,6 +407,7 @@ def main() -> None:
     # ---- 4. main path ----------------------------------------------------
     t0 = time.time()
     main_launches = None
+    played = None
     for B in (1024, 8192):
         goals = torch.linspace(0.3, 0.8, B, device=dev)
         specs = default_spec(terrain, goal_xy=(goals, 0.0), K=K)
@@ -256,6 +434,8 @@ def main() -> None:
         if tuple(table.shape) != (2501, 37) or not bool(torch.isfinite(table).all()):
             fail(f"sample_trajectory gave {tuple(table.shape)}, finite={bool(torch.isfinite(table).all())}")
         main_launches = launches
+        if B == 1024:
+            played = (res.x[::4].clone(), index_spec(specs, slice(None, None, 4)))
 
     # where the time goes at B=8192: one assembly and one solve
     x0 = initial_guess(specs, terrain, cfg)
@@ -286,6 +466,9 @@ def main() -> None:
     if not (same and xdiff <= 5e-3):
         fail(line)
     log(line + f" ({time.time() - t0:.1f} s)")
+
+    phase_playback(dev, card, terrain, *played)
+    phase_planner(dev, card)
 
     # ---- result lines ----------------------------------------------------
     row = dict(

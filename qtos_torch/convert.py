@@ -1,7 +1,7 @@
 """Carry `qtos_tpu` objects across to the port, and results back.
 
-The inputs are `qtos_tpu`'s `ProblemSpec`, `Terrain` and `SolverConfig` with
-numpy leaves (e.g. after ``jax.tree_util.tree_map(np.asarray, obj)``); they
+The inputs are `qtos_tpu`'s `ProblemSpec`, `Terrain`, `SolverConfig`,
+`SimState`, `MotorParams`, `SimParams` and `ControlParams` with numpy leaves (e.g. after ``jax.tree_util.tree_map(np.asarray, obj)``); they
 are read by attribute, so this module needs neither JAX nor `qtos_tpu`.
 """
 
@@ -12,7 +12,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from qtos_torch.control.loop import ControlParams
 from qtos_torch.device import resolve_device
+from qtos_torch.sim.engine import SimParams, SimState
+from qtos_torch.sim.motor import MotorParams
 from qtos_torch.solver.gait import GaitSchedule
 from qtos_torch.solver.spec import ProblemSpec, RobotState, SolverConfig, Weights
 from qtos_torch.terrain.heightfield import Terrain
@@ -65,6 +68,43 @@ def config_from_reference(cfg) -> SolverConfig:
             val = int(val) if f.name in ints else float(val)
         kw[f.name] = val
     return SolverConfig(**kw)
+
+
+def sim_state_from_reference(state, device=None) -> SimState:
+    """A `qtos_tpu` SimState (batched or not) with numpy leaves."""
+    dev = resolve_device(device)
+    return SimState(**{f.name: _t(getattr(state, f.name), dev) for f in dataclasses.fields(SimState)})
+
+
+def _floats_from(cls, obj):
+    return cls(**{f.name: float(getattr(obj, f.name)) for f in dataclasses.fields(cls)})
+
+
+def motor_params_from_reference(params) -> MotorParams:
+    return _floats_from(MotorParams, params)
+
+
+def sim_params_from_reference(params) -> SimParams:
+    return _floats_from(SimParams, params)
+
+
+def control_params_from_reference(params) -> ControlParams:
+    """A `qtos_tpu` ControlParams, static fields (`sim.dt`, `use_force_ff`,
+    `frame`) included."""
+    kw = {}
+    for f in dataclasses.fields(ControlParams):
+        val = getattr(params, f.name)
+        if f.name == "motor":
+            kw[f.name] = motor_params_from_reference(val)
+        elif f.name == "sim":
+            kw[f.name] = sim_params_from_reference(val)
+        elif f.name == "use_force_ff":
+            kw[f.name] = bool(val)
+        elif f.name == "frame":
+            kw[f.name] = str(val)
+        else:
+            kw[f.name] = float(val)
+    return ControlParams(**kw)
 
 
 def to_numpy(obj):

@@ -1,5 +1,9 @@
-"""Cubic Hermite spline evaluation (port of the Hermite part of
-`qtos_tpu.ops.splines`).  Everything broadcasts over leading batch dims."""
+"""Spline kernels: cubic Hermite evaluation and natural cubic spline fitting
+(port of `qtos_tpu.ops.splines`).
+
+The solver interpolates base / end-effector motion on a uniform knot grid with
+cubic Hermite segments; the global planner fits natural cubic splines through
+its waypoints with a Thomas solve."""
 
 from __future__ import annotations
 
@@ -58,3 +62,76 @@ def sample_knots(knot_x: torch.Tensor, knot_v: torch.Tensor, dt, times: torch.Te
     seg = torch.clamp(torch.floor(times / dt).long(), 0, K - 2)
     tau = times / dt - seg.to(times.dtype)
     return hermite_eval(knot_x[seg], knot_x[seg + 1], knot_v[seg], knot_v[seg + 1], dt, tau)
+
+
+def tridiag_solve(dl, d, du, b):
+    """Solve a scalar tridiagonal system via the Thomas algorithm.
+
+    Args:
+      dl: (N,) sub-diagonal (dl[0] unused).
+      d:  (N,) diagonal.
+      du: (N,) super-diagonal (du[N-1] unused).
+      b:  (N, ...) right-hand side.
+
+    Returns:
+      x: (N, ...) solution.
+    """
+    n = d.shape[0]
+    cps, dps = [], []
+    cp, dp = torch.zeros_like(d[0]), torch.zeros_like(b[0])
+    for i in range(n):
+        denom = d[i] - dl[i] * cp
+        cp = du[i] / denom
+        dp = (b[i] - dl[i] * dp) / denom
+        cps.append(cp)
+        dps.append(dp)
+    xs = [None] * n
+    x = torch.zeros_like(b[0])
+    for i in range(n - 1, -1, -1):
+        x = dps[i] - cps[i] * x
+        xs[i] = x
+    return torch.stack(xs, dim=0)
+
+
+def natural_cubic_coeffs(y: torch.Tensor, h):
+    """Second derivatives of a natural cubic spline through uniform knots.
+
+    Args:
+      y: (N, ...) knot values at spacing ``h``.
+    Returns:
+      m: (N, ...) second derivatives (m[0] = m[-1] = 0).
+    """
+    n = y.shape[0]
+    rhs = 6.0 * (y[2:] - 2.0 * y[1:-1] + y[:-2]) / (h * h)
+    d = torch.full((n - 2,), 4.0, dtype=y.dtype, device=y.device)
+    dl = torch.ones_like(d)
+    du = torch.ones_like(d)
+    dl[0] = 0.0
+    du[-1] = 0.0
+    m_inner = tridiag_solve(dl, d, du, rhs)
+    pad = torch.zeros_like(y[:1])
+    return torch.cat([pad, m_inner, pad], dim=0)
+
+
+def natural_cubic_eval(y: torch.Tensor, m: torch.Tensor, h, x0, xq: torch.Tensor):
+    """Evaluate the natural cubic spline defined by values ``y`` and second
+    derivatives ``m`` on a uniform grid starting at ``x0`` with spacing ``h``.
+
+    Returns (val, deriv) at query points xq (T,).
+    """
+    n = y.shape[0]
+    t = (xq - x0) / h
+    seg = torch.clamp(torch.floor(t).long(), 0, n - 2)
+    u = t - seg.to(t.dtype)
+    if y.dim() > 1:
+        u = u[..., None]
+    y0, y1 = y[seg], y[seg + 1]
+    m0, m1 = m[seg], m[seg + 1]
+    a = y0
+    b = (y1 - y0) / h - h * (2.0 * m0 + m1) / 6.0
+    c = m0 / 2.0
+    d = (m1 - m0) / (6.0 * h)
+    du = u * h
+    val = a + b * du + c * du * du + d * du * du * du
+    deriv = b + 2.0 * c * du + 3.0 * d * du * du
+    return val, deriv

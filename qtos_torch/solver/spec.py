@@ -39,28 +39,33 @@ class RobotState:
     feet: torch.Tensor     # (..., 4, 3) foot positions
 
     @staticmethod
-    def standing(xy=(0.0, 0.0), yaw: float = 0.0, terrain: Terrain | None = None,
+    def standing(xy=(0.0, 0.0), yaw=0.0, terrain: Terrain | None = None,
                  height: float = Solo12.stand_height, device=None):
-        """Canonical start: feet at nominal xy on the ground, base `height` above."""
+        """Canonical start: feet at nominal xy on the ground, base `height` above.
+
+        `xy`'s components and `yaw` may be tensors or arrays of one shape
+        (...): the state's leaves then carry those leading axes."""
         dev = _device_for(terrain, device)
-        x, y = float(xy[0]), float(xy[1])
-        feet = Solo12.tensors(dev).nominal_feet.clone()
-        feet[:, 0] += x
-        feet[:, 1] += y
         f32 = dict(dtype=torch.float32, device=dev)
+        x, y, yaw = torch.broadcast_tensors(
+            torch.as_tensor(xy[0], **f32), torch.as_tensor(xy[1], **f32), torch.as_tensor(yaw, **f32)
+        )
+        nominal = Solo12.tensors(dev).nominal_feet
+        fx = nominal[:, 0] + x[..., None]
+        fy = nominal[:, 1] + y[..., None]
         if terrain is not None:
-            feet[:, 2] = height_at(terrain, feet[:, 0], feet[:, 1])
-            base_z = height_at(terrain, torch.tensor(x, **f32), torch.tensor(y, **f32)) + height
+            fz = height_at(terrain, fx, fy)
+            base_z = height_at(terrain, x, y) + height
         else:
-            feet[:, 2] = 0.0
-            base_z = torch.tensor(height, **f32)
-        zero = torch.zeros((), **f32)
+            fz = torch.zeros_like(fx)
+            base_z = torch.full_like(x, height)
+        zero = torch.zeros_like(x)
         return RobotState(
-            r=torch.stack([zero + x, zero + y, base_z]),
-            eul=torch.tensor([0.0, 0.0, yaw], **f32),
-            v=torch.zeros(3, **f32),
-            omega=torch.zeros(3, **f32),
-            feet=feet,
+            r=torch.stack([x, y, base_z], -1),
+            eul=torch.stack([zero, zero, yaw], -1),
+            v=torch.zeros(x.shape + (3,), **f32),
+            omega=torch.zeros(x.shape + (3,), **f32),
+            feet=torch.stack([fx, fy, fz], -1),
         )
 
 
@@ -173,40 +178,35 @@ def default_spec(
 ) -> ProblemSpec:
     """A trot window from a standing start to a goal.
 
-    The goal's components (and `goal_yaw`) may be 1-D tensors or arrays of
-    length B: the spec is then a batch of B windows sharing start and
-    schedule, the counterpart of `jax.vmap` over `qtos_tpu`'s `default_spec`.
+    The components of `start_xy` and `goal_xy`, `yaw` and `goal_yaw` may be
+    1-D tensors or arrays of length B: the spec is then a batch of B windows
+    sharing the schedule, the counterpart of `jax.vmap` over `qtos_tpu`'s
+    `default_spec`.
     """
     dev = _device_for(terrain, device)
     f32 = dict(dtype=torch.float32, device=dev)
     dt = duration / (K - 1)
     sched = schedule if schedule is not None else trot_schedule(K, dt, device=dev)
-    start = RobotState.standing(start_xy, yaw=yaw, terrain=terrain, device=dev)
-    gx, gy, gyaw = torch.broadcast_tensors(
-        torch.as_tensor(goal_xy[0], **f32),
-        torch.as_tensor(goal_xy[1], **f32),
-        torch.as_tensor(goal_yaw, **f32),
+    sx, sy, syaw, gx, gy, gyaw = torch.broadcast_tensors(
+        *(torch.as_tensor(v, **f32)
+          for v in (start_xy[0], start_xy[1], yaw, goal_xy[0], goal_xy[1], goal_yaw))
     )
+    start = RobotState.standing((sx, sy), yaw=syaw, terrain=terrain, device=dev)
     if terrain is not None:
         gz = height_at(terrain, gx, gy) + Solo12.stand_height
     else:
         gz = torch.full_like(gx, Solo12.stand_height)
-    spec = ProblemSpec(
+    batch = gx.shape
+    if batch:
+        sched = map_tensors(sched, lambda t: t.expand(batch + t.shape[-2:]).contiguous())
+    return ProblemSpec(
         start=start,
         goal_r=torch.stack([gx, gy, gz], -1),
-        goal_yaw=gyaw,
+        goal_yaw=gyaw.contiguous(),
         duration=torch.full_like(gx, duration),
         schedule=sched,
         dt=dt,
     )
-    batch = gx.shape
-    if batch:
-        spec = dataclasses.replace(
-            spec,
-            start=map_tensors(start, lambda t: t.expand(batch + t.shape).contiguous()),
-            schedule=map_tensors(sched, lambda t: t.expand(batch + t.shape[-2:]).contiguous()),
-        )
-    return spec
 
 
 def pack_state(r, th, v, w, p, f):

@@ -125,3 +125,82 @@ def slope_grad_at(terrain: Terrain, x, y, d: float):
     s = height_at(ts, x, y)
     sx, sy = grad_at(ts, x, y)
     return s, sx, sy
+
+
+def shift_terrain(terrain: Terrain, rows: int = 0, cols: int = 0, fill: float = 0.0) -> Terrain:
+    """Dynamic-terrain update: scroll the height grid by (rows, cols) cells,
+    filling vacated cells.  The shape is unchanged."""
+    h = torch.roll(terrain.height, (rows, cols), dims=(0, 1))
+    if rows > 0:
+        h[:rows] = fill
+    elif rows < 0:
+        h[rows:] = fill
+    if cols > 0:
+        h[:, :cols] = fill
+    elif cols < 0:
+        h[:, cols:] = fill
+    return dataclasses.replace(terrain, height=h)
+
+
+def add_box_obstacle(terrain: Terrain, x: float, y: float, half: float = 0.1,
+                     height: float = 0.34) -> Terrain:
+    """Raise a box-shaped obstacle into the heightfield at world (x, y): the
+    dynamic-terrain event of a box of half-extent `half` spawned mid-run with
+    its top face at `height`.  Shape and dtype are preserved."""
+    H, W = terrain.height.shape
+    x0, y0 = terrain.origin
+    res = terrain.resolution
+    c0 = int(np.clip(np.floor((x - half - x0) / res), 0, W - 1))
+    c1 = int(np.clip(np.ceil((x + half - x0) / res), 1, W))
+    r0 = int(np.clip(np.floor((y - half - y0) / res), 0, H - 1))
+    r1 = int(np.clip(np.ceil((y + half - y0) / res), 1, H))
+    h = terrain.height.clone()
+    h[r0:r1, c0:c1] = torch.clamp(h[r0:r1, c0:c1], min=height)
+    return dataclasses.replace(terrain, height=h)
+
+
+def export_heightfield_txt(terrain: Terrain, path: str, towr_frame: bool = False) -> None:
+    """Write the height grid in the on-disk heightfield interchange format:
+    comma-delimited with a trailing comma per row.
+
+    Two variants exist: the row-major grid, and a "TOWR-frame" export that
+    transposes the grid then shifts the rows down by one (a zero first row,
+    the last transposed row dropped, shape preserved).  ``towr_frame=True``
+    writes the second."""
+    grid = terrain.height.detach().cpu().numpy()
+    if towr_frame:
+        g = grid.T
+        out = np.zeros_like(g)
+        out[1:] = g[:-1]
+        grid = out
+    with open(path, "w") as f:
+        lines = [", ".join(str(float(v)) for v in row) + "," for row in grid]
+        f.write("\n".join(lines))
+
+
+def import_heightfield_txt(path: str, resolution: float = 0.1,
+                           origin: tuple = (-1.0, -1.0), device=None) -> Terrain:
+    """Load a heightfield txt into a Terrain on `device` (None: CUDA).
+    Accepts both the comma-delimited format (trailing comma per line) and
+    plain whitespace txt."""
+    dev = resolve_device(device)
+    with open(path) as f:
+        head = f.read(4096)
+    if "," in head:
+        grid = tiles_lib.load_tile_txt(path)
+    else:
+        grid = np.loadtxt(path, dtype=np.float32)
+    height = torch.as_tensor(np.atleast_2d(grid).astype(np.float32), device=dev)
+    return Terrain(height=height, resolution=resolution, origin=origin)
+
+
+def traversability_map(terrain: Terrain, height_bound: float = 0.2) -> torch.Tensor:
+    """(H, W) float32 obstacle map (1 = blocked) from local height
+    discontinuity: a cell whose height differs from a 4-neighbour's by more
+    than `height_bound`.  The cheap analog of the solver-probed map in
+    `qtos_torch.planner.feasibility`."""
+    h = terrain.height
+    pad = torch.nn.functional.pad(h[None, None], (1, 1, 1, 1), mode="replicate")[0, 0]
+    neigh = torch.stack([pad[:-2, 1:-1], pad[2:, 1:-1], pad[1:-1, :-2], pad[1:-1, 2:]], dim=0)
+    jump = (neigh - h[None]).abs().amax(dim=0)
+    return (jump > height_bound).to(torch.float32)

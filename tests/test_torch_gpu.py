@@ -1,5 +1,6 @@
 """Tests of qtos_torch that need a CUDA card: the kernel against its plain
-version, and the solver through the kernel.  They skip without a card.
+version, the solver through the kernel, and the simulator and control loop
+on the card against the CPU.  They skip without a card.
 
 This file imports neither JAX nor qtos_tpu, so it also runs where only the
 port is installed:
@@ -15,6 +16,8 @@ batch by grid stride over the blocks that fit on the card at once (about
 The shapes cover those edges: B not a multiple of 4, B beyond one pass of
 the grid, n around 32 and at the limit 64, and K = 1, 2.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -113,3 +116,66 @@ def test_solve_batch_on_card_matches_cpu(cuda):
         out[dev.type] = (res.status.cpu(), res.x.cpu())
     torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=0)
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=5e-3)
+
+
+def _episodes(dev, B=4, K=13):
+    """B short trot windows solved on `dev`: (terrain, tables (B, T, 37))."""
+    from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve_batch
+    from qtos_torch.solver.spec import index_spec
+    from qtos_torch.terrain import make_terrain
+
+    terr = make_terrain(["plane", "plane"], device=dev)
+    goals = np.linspace(0.15, 0.45, B).astype(np.float32)
+    specs = default_spec(terr, goal_xy=(goals, 0.0), K=K, duration=1.5, device=dev)
+    res = solve_batch(specs, terr, SolverConfig(max_iters=3))
+    tables = torch.stack([sample_trajectory(res.x[i], index_spec(specs, i))[0] for i in range(B)])
+    return terr, tables
+
+
+def test_sim_step_on_card_matches_cpu(cuda):
+    """One batched physics step from moving states with feet in the ground:
+    atol 1e-5, as the CPU parity test against the reference."""
+    from qtos_torch.control import ControlParams
+    from qtos_torch.control.loop import state_from_row
+    from qtos_torch.sim import SimParams, sim_step
+    from qtos_torch.solver.spec import map_tensors
+    from qtos_torch.terrain import make_terrain
+
+    terr, tables = _episodes(cuda)
+    rng = np.random.default_rng(0)
+    state = state_from_row(tables[:, 200], terr, ControlParams(), drop=-0.002)
+    B = tables.shape[0]
+    noise = lambda scale, shape: torch.from_numpy((scale * rng.uniform(-1, 1, size=shape)).astype(np.float32)).to(cuda)
+    state = dataclasses.replace(state, v=noise(0.2, (B, 3)), w=noise(0.3, (B, 3)), qd=noise(1.0, (B, 12)))
+    tau = noise(4.0, (B, 12))
+    out = sim_step(state, tau, terr, SimParams())
+    terr_cpu = make_terrain(["plane", "plane"], device="cpu")
+    ref = sim_step(map_tensors(state, lambda t: t.cpu()), tau.cpu(), terr_cpu, SimParams())
+    for f in dataclasses.fields(out):
+        torch.testing.assert_close(getattr(out, f.name).cpu(), getattr(ref, f.name), rtol=0, atol=1e-5,
+                                   msg=lambda m, n=f.name: f"{n}: {m}")
+
+
+def test_playback_on_card_matches_cpu(cuda):
+    """100 ticks of the control loop over 4 episodes, card against CPU.  Stiff
+    penalty contact amplifies rounding differences tick by tick; the smoke
+    run's bounds after 500 ticks (5e-3 m, 2e-2 rad) scaled to 100 ticks."""
+    from qtos_torch.control import ControlParams, playback, stance_warmup
+    from qtos_torch.control.loop import state_from_row
+    from qtos_torch.terrain import make_terrain
+
+    terr, tables = _episodes(cuda)
+    tables = tables[:, :100]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        terr_d = terr if dev.type == "cuda" else make_terrain(["plane", "plane"], device="cpu")
+        tab = tables.to(dev)
+        params = ControlParams()
+        s0 = stance_warmup(state_from_row(tab[:, 0], terr_d, params), terr_d, params, 50)
+        final, m = playback(tab, s0, terr_d, params)
+        assert final.pos.device.type == dev.type and m.pos.device.type == dev.type
+        out[dev.type] = (final.pos.cpu(), final.q.cpu(), m.pos.cpu(), m.avg_com_err_per_s.cpu())
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=4e-3)
+    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=0, atol=1e-3)
+    torch.testing.assert_close(out["cuda"][3], out["cpu"][3], rtol=0.05, atol=0)
