@@ -10,9 +10,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build csrc/btd.cu with nvcc for sm_90a (ptxas report: registers);
   3. kernel vs plain version on random SPD systems (the shapes of the
-     tests, and B=8192, K=41, n=36) and on a Levenberg-Marquardt system of
-     the main path; times of the kernel, the plain version, the library
-     Thomas loop, and the bound; the kernel's GB/s against the bound's bytes
+     tests and those of the driven paths: B=1, K=33; B=20, K=25; B=8192,
+     K=41; n=36) and on a Levenberg-Marquardt system of the main path;
+     times of the kernel, the plain version, the library Thomas loop, and
+     the bound; the kernel's GB/s against the bound's bytes
      and against the bytes its design moves, its GFLOP/s, registers, shared
      memory per block and resident warps per SM;
   4. the main path: solve_batch on the bench distribution (plane x3, K=41,
@@ -56,7 +57,10 @@ def log(msg: str) -> None:
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 KERNEL_ATOL = 5e-4          # random diagonally dominant systems, O(1) solutions
-SHAPES = [(3, 7, 12), (2, 5, 36), (1, 9, 5), (5, 4, 6), (8192, 41, 36)]
+# The shapes of the tests, then those the driven paths give the kernel: the
+# quick start's single K=33 window (phase 6a), the feasibility probe's 20 K=25
+# windows (phase 7), and the bench batch (phase 4), which is the one timed.
+SHAPES = [(3, 7, 12), (2, 5, 36), (1, 9, 5), (5, 4, 6), (1, 33, 36), (20, 25, 36), (8192, 41, 36)]
 
 
 def _synced(dev) -> float:
@@ -75,6 +79,7 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
 
     from qtos_torch.control import ControlParams, playback, stance_warmup
     from qtos_torch.control.loop import state_from_row
+    from qtos_torch.ops.btd import btd_solve
     from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve
     from qtos_torch.solver.spec import index_spec, map_tensors
     from qtos_torch.terrain import make_terrain
@@ -93,7 +98,11 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
     t0 = time.time()
     terr2 = make_terrain(["plane", "plane"], device=dev)
     spec = default_spec(terr2, goal_xy=(0.5, 0.0), K=33, device=dev)
+    btd_solve.launches = 0
     res = solve(spec, terr2, SolverConfig(max_iters=30))
+    launches, iters = btd_solve.launches, int(res.iters.max())
+    if dev.type == "cuda" and launches < iters:      # main() always passes the card
+        fail(f"phase 6a: the quick start's solve launched the kernel {launches} times in {iters} iterations")
     status = int(res.status)
     table, _ = sample_trajectory(res.x, spec)
     final, m, warm_s, play_s = episode(table, terr2)
@@ -102,7 +111,8 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
     plan_end = table[-1, 1:4].cpu()
     pos = final.pos.cpu()
     err_s = float(m.avg_com_err_per_s)
-    line = (f"# phase 6a quick start (K=33, {T1} rows): status {status}, avg_com_err_per_s {err_s:.2f}, "
+    line = (f"# phase 6a quick start (K=33, {T1} rows): status {status}, btd launches {launches} in "
+            f"{iters} iterations, avg_com_err_per_s {err_s:.2f}, "
             f"final pos ({pos[0]:.4f}, {pos[1]:.4f}, {pos[2]:.4f}) vs plan end "
             f"({plan_end[0]:.4f}, {plan_end[1]:.4f}, {plan_end[2]:.4f}); warm-up {warmup} ticks "
             f"{warm_s:.2f} s, playback {play_s:.2f} s = {ms_tick_1:.3f} ms per tick at B=1 on {card}")
@@ -147,7 +157,10 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
                  / m_cpu.avg_com_err_per_s).max())
     line = (f"# phase 6c CUDA vs CPU, 4 episodes, {warmup} warm-up + {short.shape[1]} ticks: max |dpos| {dpos:.3e} m, "
             f"max |dq| {dq:.3e} rad, avg_com_err_per_s differs by {100 * rel:.3f} %")
-    if not (dpos <= 5e-3 and dq <= 2e-2 and rel <= 0.05):
+    # Both devices run the same float32 operations; on flat ground every run
+    # on an H100 gave 4.5e-7 m, 2.2e-6 rad and 0.001 %.  The gates leave two
+    # orders of magnitude above that for other cards and library versions.
+    if not (dpos <= 1e-4 and dq <= 5e-4 and rel <= 0.005):
         fail(line)
     log(line + f" ({time.time() - t0:.1f} s)")
 
@@ -159,7 +172,7 @@ def phase_planner(dev, card) -> None:
 
     from qtos_torch.ops.btd import btd_solve
     from qtos_torch.planner import GlobalPlanner, astar, feasibility_map
-    from qtos_torch.planner import feasibility as feas
+    from qtos_torch.planner.feasibility import probe_specs
     from qtos_torch.solver import SolverConfig, solve_batch
     from qtos_torch.terrain import make_terrain
 
@@ -167,23 +180,15 @@ def phase_planner(dev, card) -> None:
     tiles, goal, K, max_iters = ["feasibility", "plane"], (2.6, 0.0), 25, 25
     terrain = make_terrain(tiles, device=dev)
     cfg = SolverConfig(max_iters=max_iters, tol=6e-3)
-    probe = {}
+    btd_solve.launches = 0
+    t1 = _synced(dev)
+    fmap = feasibility_map(terrain, cfg=cfg, K=K)
+    probe_s = _synced(dev) - t1
+    launches = btd_solve.launches
 
-    def recording_solve_batch(specs, terr, cfg_):
-        probe["specs"] = specs
-        probe["res"] = solve_batch(specs, terr, cfg_)
-        return probe["res"]
-
-    feas.solve_batch = recording_solve_batch
-    try:
-        before = btd_solve.launches
-        t1 = _synced(dev)
-        fmap = feasibility_map(terrain, cfg=cfg, K=K)
-        probe_s = _synced(dev) - t1
-        launches = btd_solve.launches - before
-    finally:
-        feas.solve_batch = solve_batch
-    res = probe["res"]
+    # The probe's windows once more, for the counts the map does not carry.
+    _, specs = probe_specs(terrain, K=K)
+    res = solve_batch(specs, terrain, cfg)
     n_pairs = int(res.status.numel())
     obst = torch.maximum(res.viol["terrain"], res.viol["body"])
     n_failed = int((obst >= 3e-2).sum())
@@ -209,7 +214,7 @@ def phase_planner(dev, card) -> None:
     # The rescue pass on the probe's windows: its first scenarios that fail
     # pass 1 (phase 4's distribution converges whole, so it never enters).
     t1 = _synced(dev)
-    res2 = solve_batch(probe["specs"], terrain, cfg.replace(rescue_iters=12))
+    res2 = solve_batch(specs, terrain, cfg.replace(rescue_iters=12))
     rescue_s = _synced(dev) - t1
     n_rescued = n_unconverged - int((res2.status != 0).sum())
     log(f"# phase 7 rescue pass on the probe's windows (rescue_iters=12): {n_unconverged} gathered, "

@@ -75,6 +75,34 @@ def _stamp(blocked: np.ndarray, cell, offsets: np.ndarray) -> None:
     blocked[r[keep], c[keep]] = True
 
 
+def probe_specs(terrain: Terrain, window_duration: float = 1.5, K: int = 25, max_batch: int = 8192):
+    """The probe's candidate pairs and their stacked ProblemSpec batch on
+    the terrain's device: (pairs, specs), specs None when no pair is near an
+    obstacle."""
+    height = terrain.height.detach().cpu().numpy()
+    pairs = _candidate_pairs(height)
+    pairs = pairs[:max_batch]
+    if not pairs:
+        return pairs, None
+    x0, y0 = terrain.origin
+    res = terrain.resolution
+
+    def cell_xy(cell):
+        return (x0 + (cell[1] + 0.5) * res, y0 + (cell[0] + 0.5) * res)
+
+    starts = np.array([cell_xy(p[0]) for p in pairs], np.float32)
+    goals = np.array([cell_xy(p[1]) for p in pairs], np.float32)
+    specs = default_spec(
+        terrain,
+        start_xy=(starts[:, 0], starts[:, 1]),
+        goal_xy=(goals[:, 0], goals[:, 1]),
+        duration=window_duration,
+        K=K,
+        device=terrain.device,
+    )
+    return pairs, specs
+
+
 def feasibility_map(
     terrain: Terrain,
     cfg: SolverConfig | None = None,
@@ -100,28 +128,10 @@ def feasibility_map(
         # flat maps skip probing entirely
         return blocked.astype(np.float32)
 
-    pairs = _candidate_pairs(height)
-    pairs = pairs[:max_batch]
+    pairs, specs = probe_specs(terrain, window_duration, K, max_batch)
     offsets = _diamond_offsets(stamp_radius)
 
     if pairs:
-        x0, y0 = terrain.origin
-        res = terrain.resolution
-
-        def cell_xy(cell):
-            return (x0 + (cell[1] + 0.5) * res, y0 + (cell[0] + 0.5) * res)
-
-        starts = np.array([cell_xy(p[0]) for p in pairs], np.float32)
-        goals = np.array([cell_xy(p[1]) for p in pairs], np.float32)
-
-        specs = default_spec(
-            terrain,
-            start_xy=(starts[:, 0], starts[:, 1]),
-            goal_xy=(goals[:, 0], goals[:, 1]),
-            duration=window_duration,
-            K=K,
-            device=terrain.device,
-        )
         res_b = solve_batch(specs, terrain, cfg)
         # Blocked = the hop is INFEASIBLE, not merely slow to converge: a
         # status-only test also stamps loosely-converged solves on

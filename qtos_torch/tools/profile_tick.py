@@ -1,23 +1,21 @@
-r"""Where a tick of the 1 kHz control loop spends its time on one CUDA card.
+r"""What one tick of the 1 kHz control loop launches on one CUDA card.
 
     python3 -m qtos_torch.tools.profile_tick [TICKS]
 
-Solves trot windows on flat ground (plane x3, K=41, goals 0.3-0.8 m, three LM
-iterations), samples them to 1 kHz tables, and plays the first TICKS rows
-(default 200) at several batch sizes.  It prints
+Solves 256 trot windows on flat ground (plane x3, K=41, goals 0.3-0.8 m, three
+LM iterations), samples them to 1 kHz tables, and plays the first TICKS rows
+(default 50) at B = 1 and B = 256.  It prints
 
-  - ms per tick of `playback` at B = 1, 16, 256, 1024 (host clock around a
-    call that ends in a synchronise, after a short warm-up call), and of
-    `stance_warmup`;
   - the aten operations one tick dispatches (counted on the host with a
     `TorchDispatchMode`; views included);
-  - from `torch.profiler`, at B = 1 and B = 256: the device kernels one tick
-    launches, the device's busy share of the wall time, and the ten kernels
-    with the most device time ("not measured" if the profiler reports no
-    device activity);
+  - from `torch.profiler`: the device kernels one tick launches, the device's
+    busy time per tick and its share of the same call's wall time without the
+    profiler, and the ten kernels with the most device time ("not measured"
+    if the profiler reports no device activity);
   - the card's name, power limit and SM clock, before and after the runs.
 
-It needs a card and exits non-zero without one.
+Times per tick at full length are `chip_smoke.py`'s (phase 6).  It needs a
+card and exits non-zero without one.
 """
 
 from __future__ import annotations
@@ -75,47 +73,33 @@ def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile_tick: needs a CUDA card", file=sys.stderr)
         return 1
-    ticks = int(argv[1]) if len(argv) > 1 else 200
+    ticks = int(argv[1]) if len(argv) > 1 else 50
     dev = torch.device("cuda")
     print(_card(), flush=True)
 
     terrain = make_terrain(["plane"] * 3)
     params = ControlParams()
-    Bmax = 1024
+    Bmax = 256
     specs = default_spec(terrain, goal_xy=(torch.linspace(0.3, 0.8, Bmax, device=dev), 0.0), K=41)
     res = solve_batch(specs, terrain, SolverConfig(max_iters=3, rescue_iters=12))
     all_tables = torch.stack(
         [sample_trajectory(res.x[i], index_spec(specs, i))[0][:ticks] for i in range(Bmax)]
     )
 
-    states = {}
-    for B in (1, 16, 256, 1024):
-        tables = all_tables[:: Bmax // B] if B > 1 else all_tables[0]
-        s0 = state_from_row(tables[..., 0, :], terrain, params)
-        stance_warmup(s0, terrain, params, 20)
-        s0, warm_s = _timed(lambda: stance_warmup(s0, terrain, params, ticks))
-        playback(tables[..., :20, :], s0, terrain, params)
-        _, play_s = _timed(lambda: playback(tables, s0, terrain, params))
-        states[B] = (tables, s0, play_s / ticks * 1e3)
-        print(f"B={B}: playback {play_s / ticks * 1e3:.3f} ms per tick "
-              f"({B * ticks / play_s:.0f} episode-ticks/s), stance_warmup {warm_s / ticks * 1e3:.3f} ms per tick "
-              f"over {ticks} ticks", flush=True)
-
-    tables, s0, _ = states[1]
-    with _CountOps() as counter:
-        playback(tables[:10], s0, terrain, params)
-    total = sum(counter.ops.values())
-    print(f"aten operations dispatched: {total / 10:.1f} per tick (B=1, 10 ticks incl. the trace stacking); "
-          f"most frequent: {counter.ops.most_common(8)}", flush=True)
-
-    for B in (1, 256):
-        tables, s0, ms_tick = states[B]
-        n = min(ticks, 50)
-        torch.cuda.synchronize()
+    for B in (1, Bmax):
+        tables = all_tables if B > 1 else all_tables[0]
+        s0 = stance_warmup(state_from_row(tables[..., 0, :], terrain, params), terrain, params, 20)
+        if B == 1:
+            with _CountOps() as counter:
+                playback(tables[:10], s0, terrain, params)
+            print(f"aten operations dispatched: {sum(counter.ops.values()) / 10:.1f} per tick (B=1, 10 ticks "
+                  f"incl. the trace stacking); most frequent: {counter.ops.most_common(8)}", flush=True)
+        playback(tables[..., :5, :], s0, terrain, params)
+        _, plain = _timed(lambda: playback(tables, s0, terrain, params))
         with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         ) as prof:
-            _, wall = _timed(lambda: playback(tables[..., :n, :], s0, terrain, params))
+            _, wall = _timed(lambda: playback(tables, s0, terrain, params))
         events = _device_events(prof)
         busy_us = sum(t for _, t in events)
         if not events or busy_us == 0.0:
@@ -126,10 +110,10 @@ def main(argv) -> int:
         for name, t in events:
             by_name[name] += t
         top = ", ".join(f"{name[:60]} {t / busy_us:.1%}" for name, t in by_name.most_common(10))
-        busy_ms = busy_us / 1e3 / n
-        print(f"B={B}: {len(events) / n:.1f} device kernels and copies per tick, device busy "
-              f"{busy_ms:.3f} ms per tick = {busy_ms / ms_tick:.1%} of the {ms_tick:.3f} ms per tick measured "
-              f"without the profiler ({wall / n * 1e3:.3f} ms per tick under it; {n} ticks); "
+        busy_ms, ms_tick = busy_us / 1e3 / ticks, plain / ticks * 1e3
+        print(f"B={B}: {len(events) / ticks:.1f} device kernels and copies per tick, device busy "
+              f"{busy_ms:.3f} ms per tick = {busy_ms / ms_tick:.1%} of the {ms_tick:.3f} ms per tick of the same "
+              f"call without the profiler ({wall / ticks * 1e3:.3f} ms per tick under it; {ticks} ticks); "
               f"top by device time: {top}", flush=True)
     print(_card(), flush=True)
     return 0

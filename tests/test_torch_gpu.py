@@ -159,7 +159,8 @@ def test_sim_step_on_card_matches_cpu(cuda):
 def test_playback_on_card_matches_cpu(cuda):
     """100 ticks of the control loop over 4 episodes, card against CPU.  Stiff
     penalty contact amplifies rounding differences tick by tick; the smoke
-    run's bounds after 500 ticks (5e-3 m, 2e-2 rad) scaled to 100 ticks."""
+    run's bounds after 500 + 500 ticks (1e-4 m, 5e-4 rad, 0.5 %) scaled to
+    the 100 ticks played here."""
     from qtos_torch.control import ControlParams, playback, stance_warmup
     from qtos_torch.control.loop import state_from_row
     from qtos_torch.terrain import make_terrain
@@ -175,7 +176,7 @@ def test_playback_on_card_matches_cpu(cuda):
         final, m = playback(tab, s0, terr_d, params)
         assert final.pos.device.type == dev.type and m.pos.device.type == dev.type
         out[dev.type] = (final.pos.cpu(), final.q.cpu(), m.pos.cpu(), m.avg_com_err_per_s.cpu())
-    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=1e-3)
-    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=4e-3)
-    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=0, atol=1e-3)
-    torch.testing.assert_close(out["cuda"][3], out["cpu"][3], rtol=0.05, atol=0)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], rtol=0, atol=2e-5)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
+    torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=0, atol=2e-5)
+    torch.testing.assert_close(out["cuda"][3], out["cpu"][3], rtol=1e-3, atol=0)
