@@ -2,7 +2,8 @@
 """Smoke run of qtos_torch on one CUDA card: builds the kernel from the
 checkout, holds it against its plain PyTorch version, drives the batched
 gait-NLP solve at bench width, plays solved trajectories through the physics,
-probes a feasibility map and plans over it, and checks the results.
+probes a feasibility map and plans over it, walks the exp_1 preset to its goal
+with the receding-horizon runner, and checks the results.
 
     python3 chip_smoke.py
 
@@ -10,8 +11,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build csrc/btd.cu with nvcc for sm_90a (ptxas report: registers);
   3. kernel vs plain version on random SPD systems (the shapes of the
-     tests and those of the driven paths: B=1, K=33; B=20, K=25; B=8192,
-     K=41; n=36) and on a Levenberg-Marquardt system of the main path;
+     tests and those of the driven paths: B=1, K=33; B=20, K=25; B=4, K=41;
+     B=8192, K=41; n=36) and on a Levenberg-Marquardt system of the main path;
      times of the kernel, the plain version, the library Thomas loop, and
      the bound; the kernel's GB/s against the bound's bytes
      and against the bytes its design moves, its GFLOP/s, registers, shared
@@ -59,8 +60,10 @@ PEAK_F32_FLOPS = 67e12
 KERNEL_ATOL = 5e-4          # random diagonally dominant systems, O(1) solutions
 # The shapes of the tests, then those the driven paths give the kernel: the
 # quick start's single K=33 window (phase 6a), the feasibility probe's 20 K=25
-# windows (phase 7), and the bench batch (phase 4), which is the one timed.
-SHAPES = [(3, 7, 12), (2, 5, 36), (1, 9, 5), (5, 4, 6), (1, 33, 36), (20, 25, 36), (8192, 41, 36)]
+# windows (phase 7), the runner's 4 candidate windows per replan (phase 8), and
+# the bench batch (phase 4), which is the one timed.
+SHAPES = [(3, 7, 12), (2, 5, 36), (1, 9, 5), (5, 4, 6), (1, 33, 36), (20, 25, 36), (4, 41, 36),
+          (8192, 41, 36)]
 
 
 def _synced(dev) -> float:
@@ -81,7 +84,7 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
     from qtos_torch.control.loop import state_from_row
     from qtos_torch.ops.btd import btd_solve
     from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve
-    from qtos_torch.solver.spec import index_spec, map_tensors
+    from qtos_torch.solver.spec import map_tensors
     from qtos_torch.terrain import make_terrain
 
     params = ControlParams()
@@ -124,7 +127,7 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
     # 6b: full width, B episodes in one batched call
     t0 = time.time()
     B = x.shape[0]
-    tables = torch.stack([sample_trajectory(x[i], index_spec(specs, i))[0] for i in range(B)])
+    tables, _ = sample_trajectory(x, specs)
     T = tables.shape[1]
     final, m, warm_s, play_s = episode(tables, terrain)
     finite = all(bool(torch.isfinite(t).all()) for t in
@@ -230,6 +233,120 @@ def phase_planner(dev, card) -> None:
     if not (np.isfinite(path).all() and abs(path[-1, 0] - goal[0]) < 1e-3 and abs(path[-1, 1] - goal[1]) < 1e-3):
         fail(line)
     log(line + f" (phase 7 done in {time.time() - t0:.1f} s)")
+
+
+def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
+    """Phase 8.  `goal_xy` and `runner_cfg` (a zero-argument factory of
+    RunnerConfig) cut the run for a rehearsal on the CPU; main() passes
+    neither, so the card walks the exp_1 preset as it is.  Returns the
+    kernel's launches in 8a's replan and 8b's run."""
+    import dataclasses
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from qtos_torch.builder import build
+    from qtos_torch.control.replan import SIM_LEAVES, RunnerConfig, plan_windows_batch
+    from qtos_torch.ops.btd import btd_solve
+    from qtos_torch.runtime import native_available
+    from qtos_torch.solver.spec import RobotState
+
+    exp = "exp_1"
+    on_card = dev.type == "cuda"              # main() always passes the card
+    make_cfg = runner_cfg or RunnerConfig
+    if not native_available():
+        fail("phase 8: the native host library (runtime/native/qtos_native.cpp) did not build")
+
+    # 8a: one replan on its own, at the shape the runner gives it
+    t0 = time.time()
+    bundle = build(exp, goal_xy=goal_xy, runner_cfg=make_cfg(), device=dev)
+    cfg, terrain = bundle.runner.cfg, bundle.terrain
+    k = cfg.n_candidates
+    st = RobotState.standing((torch.zeros(k, device=dev), torch.zeros(k, device=dev)),
+                             terrain=terrain, device=dev)
+    zeros = torch.zeros((k, 12), device=dev)
+    rows = torch.cat([zeros[:, :1], st.r, st.eul, st.feet.reshape(k, 12), st.v, st.omega, zeros], dim=-1)
+    goals = st.r + torch.stack([0.55 - 0.05 * torch.arange(k, device=dev),
+                                torch.zeros(k, device=dev), torch.zeros(k, device=dev)], dim=-1)
+    gyaws = torch.zeros(k, device=dev)
+    for _ in range(2):                        # the second call is the timed one
+        btd_solve.launches = 0
+        t1 = _synced(dev)
+        res, tables, _ = plan_windows_batch(rows, goals, gyaws, terrain, cfg)
+        replan_s = _synced(dev) - t1
+    replan_launches = btd_solve.launches
+    n_conv = int((res.status == 0).sum())
+    line = (f"# phase 8a replan (plan_windows_batch, B={k}, K={cfg.K}, max_iters={cfg.solver.max_iters}): "
+            f"{replan_s * 1e3:.1f} ms on {card}, btd launches {replan_launches}, {n_conv}/{k} converged, "
+            f"tables {tuple(tables.shape)}; the kernel against its plain version at "
+            f"({k}, {cfg.K}, 36) is phase 3's row of that shape")
+    if on_card and replan_launches != cfg.solver.max_iters:
+        fail(line + f": expected {cfg.solver.max_iters} launches")
+    if not (n_conv >= 1 and bool(torch.isfinite(tables).all())):
+        fail(line)
+    log(line)
+
+    # 8b: the preset, start to goal
+    runner = bundle.runner
+    btd_solve.launches = 0
+    t1 = _synced(dev)
+    rep = runner.run(verbose=True)
+    wall = _synced(dev) - t1
+    launches = btd_solve.launches
+    want = cfg.solver.max_iters * rep.windows + cfg.escalate_iters * runner.escalations
+    plan_s = rep.windows * replan_s
+    loops = max(runner._st["window"], 1)
+    line = (f"# phase 8b {exp} (K={cfg.K}, {cfg.window_duration} s windows, f_steps {cfg.f_steps}, "
+            f"{cfg.n_candidates} candidates, goal {tuple(float(g) for g in runner.goal_xy)}): "
+            f"reached_goal {rep.reached_goal}, aborted {rep.aborted}, {rep.windows} windows, "
+            f"{rep.sim_ticks} ticks, statuses {rep.statuses}, stance holds {rep.stance_holds}, "
+            f"escalations {runner.escalations}, final pos ({rep.final_pos[0]:.4f}, {rep.final_pos[1]:.4f}, "
+            f"{rep.final_pos[2]:.4f}), avg_com_err_per_s {rep.avg_com_err_per_s:.2f}, "
+            f"btd launches {launches} (= {cfg.solver.max_iters} x {rep.windows} solves"
+            f"{' + escalations' if runner.escalations else ''}); wall {wall:.2f} s on {card} = "
+            f"{wall / loops:.2f} s per window over {loops} windows of the loop, of which replans "
+            f"{plan_s:.2f} s in all (8a's {replan_s * 1e3:.1f} ms each) and warm-up + execution the rest: "
+            f"{(wall - plan_s) / max(rep.sim_ticks, 1) * 1e3:.3f} ms per tick; time from dispatch to "
+            f"usable plan per window {[round(t, 2) for t in rep.solve_wall_times]} s; "
+            f"native host library in use {runner.host_buf.is_native}.  "
+            f"For comparison of behaviour only, never of time: the TPU package's committed exp_1 run "
+            f"took 5 windows and 12,465 ticks")
+    ok = (rep.reached_goal and not rep.aborted and rep.windows >= 2 and all(s == 0 for s in rep.statuses)
+          and rep.stance_holds == 0 and runner.host_buf.is_native
+          and np.isfinite(rep.final_pos).all() and rep.avg_com_err_per_s < 120.0)
+    if goal_xy is None:
+        ok = ok and rep.final_pos[0] > 1.9
+    if on_card:
+        ok = ok and launches == want
+    if not ok:
+        fail(line)
+    log(line)
+
+    # 8c: checkpoint after each of two windows, restore into a fresh runner
+    t1 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "checkpoint.npz")
+        cut = dataclasses.replace(make_cfg(), max_windows=2, checkpoint_every=1, checkpoint_path=path)
+        first = build(exp, goal_xy=goal_xy, runner_cfg=cut, device=dev).runner
+        first.run(verbose=False)
+        fresh = build(exp, goal_xy=goal_xy, runner_cfg=cut, device=dev).runner
+        fresh.restore(path)
+    same = (torch.equal(first.buffer, fresh.buffer) and torch.equal(first.contact_buf, fresh.contact_buf)
+            and first.buffer_end == fresh.buffer_end
+            and first._st["exec_idx"] == fresh._st["exec_idx"]
+            and np.array_equal(first._row_shift, fresh._row_shift)
+            and all(torch.equal(getattr(first._st["sim"], n), getattr(fresh._st["sim"], n))
+                    for n in SIM_LEAVES)
+            and np.array_equal(first.host_buf.read(0, first.buffer_end),
+                               fresh.host_buf.read(0, fresh.buffer_end)))
+    line = (f"# phase 8c checkpoint: 2 windows, cursor {first._st['exec_idx']}, buffer_end {first.buffer_end}; "
+            f"buffers, cursor, row shifts, host mirror and sim state equal bit for bit after restore: {same}")
+    if not (same and first.buffer.data_ptr() != fresh.buffer.data_ptr() and first._st["exec_idx"] > 0):
+        fail(line)
+    log(line + f" ({time.time() - t1:.1f} s; phase 8 done in {time.time() - t0:.1f} s)")
+    return {"replan": replan_launches, "runner": launches}
 
 
 def main() -> None:
@@ -474,6 +591,7 @@ def main() -> None:
 
     phase_playback(dev, card, terrain, *played)
     phase_planner(dev, card)
+    runner_launches = phase_runner(dev, card)
 
     # ---- result lines ----------------------------------------------------
     row = dict(
@@ -482,6 +600,9 @@ def main() -> None:
         source="qtos_torch/csrc/btd.cu",
         replaces="qtos_tpu/ops/pallas/btd.py:153 (_btd_kernel)",
         launches=main_launches,
+        # the later paths' counts, each read after its own run
+        launches_replan=runner_launches["replan"],
+        launches_runner=runner_launches["runner"],
         max_abs_err=max_err_all,
         max_err=max_err_all,
         **kernel_row,

@@ -1,8 +1,10 @@
 """Carry `qtos_tpu` objects across to the port, and results back.
 
 The inputs are `qtos_tpu`'s `ProblemSpec`, `Terrain`, `SolverConfig`,
-`SimState`, `MotorParams`, `SimParams` and `ControlParams` with numpy leaves (e.g. after ``jax.tree_util.tree_map(np.asarray, obj)``); they
-are read by attribute, so this module needs neither JAX nor `qtos_tpu`.
+`SimState`, `MotorParams`, `SimParams`, `ControlParams` and `RunnerConfig`
+with numpy leaves (e.g. after ``jax.tree_util.tree_map(np.asarray, obj)``),
+and the dict its runner's ``state_dict()`` returns; they are read by
+attribute or key, so this module needs neither JAX nor `qtos_tpu`.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import numpy as np
 import torch
 
 from qtos_torch.control.loop import ControlParams
+from qtos_torch.control.replan import SIM_LEAVES, RunnerConfig
 from qtos_torch.device import resolve_device
 from qtos_torch.sim.engine import SimParams, SimState
 from qtos_torch.sim.motor import MotorParams
@@ -105,6 +108,62 @@ def control_params_from_reference(params) -> ControlParams:
         else:
             kw[f.name] = float(val)
     return ControlParams(**kw)
+
+
+def runner_config_from_reference(cfg) -> RunnerConfig:
+    """A `qtos_tpu` RunnerConfig.  `terrain_update` is carried as it is: a
+    hook written for `qtos_tpu` terrains must be replaced by the caller."""
+    kw = {}
+    for f in dataclasses.fields(RunnerConfig):
+        val = getattr(cfg, f.name)
+        if f.name == "solver":
+            val = config_from_reference(val)
+        elif f.name == "control":
+            val = None if val is None else control_params_from_reference(val)
+        elif f.name not in ("terrain_update", "gait", "checkpoint_path"):
+            val = type(f.default)(val)          # int, float or bool, as declared
+        kw[f.name] = val
+    return RunnerConfig(**kw)
+
+
+_RUNNER_STATE_KEYS = (
+    "buffer", "contact_buf", "buffer_end", "exec_idx", "window", "planning_done", "prev_x",
+    "row_shift", "com_errs", "ee_errs", "sim_pos", "sim_feet", "solve_times", "statuses",
+    "consec_failures", "consec_diverged", "stance_holds", "archive",
+)
+
+
+def runner_state_from_reference(d: dict) -> dict:
+    """The dict of `qtos_tpu`'s ``RecedingHorizonRunner.state_dict()`` (numpy
+    arrays, as its ``save_checkpoint`` writes them) as the dict the port's
+    ``load_state_dict`` takes: a checkpoint written by `qtos_tpu` resumes in
+    `qtos_torch`.
+
+    The two packages use the same keys.  `qtos_tpu` numbers the simulator's
+    leaves ``sim_<i>`` in the order JAX flattens its SimState, which is
+    `SIM_LEAVES`; this checks that every leaf is there with its shape, copies
+    every array (so the result shares no memory with the source) and drops
+    nothing else.
+    """
+    leaf_shapes = dict(pos=(3,), quat=(4,), v=(3,), w=(3,), q=(12,), qd=(12,), anchor=(4, 2))
+    out = {}
+    for key in _RUNNER_STATE_KEYS:
+        if key not in d:
+            raise KeyError(f"runner state lacks {key!r}")
+        out[key] = np.array(d[key])
+    for i, name in enumerate(SIM_LEAVES):
+        key = f"sim_{i}"
+        if key not in d:
+            raise KeyError(f"runner state lacks {key!r} (SimState.{name})")
+        leaf = np.array(d[key], dtype=np.float32)
+        if leaf.shape != leaf_shapes[name]:
+            raise ValueError(f"{key} should be SimState.{name} of shape {leaf_shapes[name]}, got {leaf.shape}")
+        out[key] = leaf
+    if f"sim_{len(SIM_LEAVES)}" in d:
+        raise ValueError(f"runner state has more than {len(SIM_LEAVES)} simulator leaves")
+    for key in ("buffer", "contact_buf", "prev_x", "row_shift", "archive"):
+        out[key] = out[key].astype(np.float32)
+    return out
 
 
 def to_numpy(obj):

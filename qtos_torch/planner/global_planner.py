@@ -15,6 +15,7 @@ import torch
 from qtos_torch.models.solo12 import Solo12
 from qtos_torch.ops.splines import natural_cubic_coeffs, natural_cubic_eval
 from qtos_torch.planner.astar import astar
+from qtos_torch.runtime import native_astar, native_available
 from qtos_torch.terrain.heightfield import Terrain, traversability_map
 
 
@@ -47,6 +48,8 @@ class GlobalPlanner:
         if isinstance(blocked, torch.Tensor):
             blocked = blocked.detach().cpu().numpy()
         raw_blocked = np.asarray(blocked) > 0.5
+        # the native A* (no cost argument) where it built, else the Python one
+        search = native_astar if native_available() else astar
 
         # Obstacle inflation in METERS, converted to cells at the map's
         # resolution (a cell count silently halves the clearance on
@@ -107,14 +110,16 @@ class GlobalPlanner:
             # just-spawned box must still be able to path out of the pocket
             allowed = np.minimum(margin, np.maximum(0, d_end - 1))
             self.blocked = dist <= allowed
-            # `qtos_tpu` runs the unweighted search (no soft cost anywhere)
-            # through its native A* when that library loads.  Here both
-            # branches are the Python `astar`: the native A* comes with the
-            # receding-horizon runner, through the port's own bindings.
-            cells = astar(
-                self.blocked, self._to_cell(start_xy), self._to_cell(goal_xy),
-                cost=soft if soft.any() else None,
-            )
+            if soft.any():
+                # weighted search is python-only; the grid is tiny (ms)
+                cells = astar(
+                    self.blocked, self._to_cell(start_xy),
+                    self._to_cell(goal_xy), cost=soft,
+                )
+            else:
+                cells = search(
+                    self.blocked, self._to_cell(start_xy), self._to_cell(goal_xy)
+                )
             if cells is not None:
                 break
         if cells is None:

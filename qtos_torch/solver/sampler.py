@@ -20,29 +20,32 @@ TRAJ_COLS = 37
 
 
 def _knot_foot_velocities(p, contact, dt):
-    """(K, 4, 3) central-difference foot velocities, zero in stance."""
-    v_mid = (p[2:] - p[:-2]) / (2 * dt)
-    v0 = (p[1] - p[0]) / dt
-    vK = (p[-1] - p[-2]) / dt
-    v = torch.cat([v0[None], v_mid, vK[None]], dim=0)
+    """(..., K, 4, 3) central-difference foot velocities, zero in stance."""
+    v_mid = (p[..., 2:, :, :] - p[..., :-2, :, :]) / (2 * dt)
+    v0 = (p[..., 1:2, :, :] - p[..., 0:1, :, :]) / dt
+    vK = (p[..., -1:, :, :] - p[..., -2:-1, :, :]) / dt
+    v = torch.cat([v0, v_mid, vK], dim=-3)
     return v * (1.0 - contact[..., None])
 
 
-def sample_trajectory(x: torch.Tensor, spec: ProblemSpec, hz: int = 1000, t0: float = 0.0):
-    """Sample one solved knot trajectory to a dense table.
+def sample_trajectory(x: torch.Tensor, spec: ProblemSpec, hz: int = 1000, t0=0.0):
+    """Sample solved knot trajectories to dense tables.
 
     Args:
-      x: (K, NV) solver output of one scenario.
-      spec: that scenario's (unbatched) spec: dt and the contact schedule.
+      x: (..., K, NV) solver output: one scenario, or a batch of them (the
+        counterpart of `jax.vmap` over `qtos_tpu`'s `sample_trajectory`).
+      spec: the spec with the same leading axes: dt and the contact schedule.
       hz: output rate.
-      t0: time stamped into column 0 of the first row.
+      t0: time stamped into column 0 of the first row: a float, or a (...)
+        tensor with one time per scenario (never read back to the host).
 
     Returns:
-      (table, contact): (T, 37) float32 table and (T, 4) contact mask, where
-      T = round(duration * hz) + 1.
+      (table, contact): (..., T, 37) float32 table and (..., T, 4) contact
+      mask, where T = round(duration * hz) + 1.
     """
     s = unpack_state(x)
-    K = x.shape[0]
+    K = x.shape[-2]
+    lead = x.shape[:-2]
     dt = spec.dt
     duration = dt * (K - 1)
     T = int(round(duration * hz)) + 1
@@ -53,26 +56,31 @@ def sample_trajectory(x: torch.Tensor, spec: ProblemSpec, hz: int = 1000, t0: fl
 
     def seg_interp(knot_x, knot_v):
         pos, vel, _ = hermite_eval(
-            knot_x[seg], knot_x[seg + 1], knot_v[seg], knot_v[seg + 1], dt, tau
+            knot_x[..., seg, :], knot_x[..., seg + 1, :],
+            knot_v[..., seg, :], knot_v[..., seg + 1, :], dt, tau
         )
         return pos, vel
+
+    def lerp(knot):
+        return knot[..., seg, :] * (1 - tau)[:, None] + knot[..., seg + 1, :] * tau[:, None]
 
     rate = omega_to_euler_rate(s["th"], s["w"])
     r, v = seg_interp(s["r"], s["v"])
     th, _ = seg_interp(s["th"], rate)
     # angular velocity: interpolated linearly (consistent with trapezoidal defects)
-    w = s["w"][seg] * (1 - tau)[:, None] + s["w"][seg + 1] * tau[:, None]
+    w = lerp(s["w"])
 
     contact_k = spec.schedule.contact
     pv = _knot_foot_velocities(s["p"], contact_k, dt)
-    p, _ = seg_interp(s["p"].reshape(K, 12), pv.reshape(K, 12))
+    p, _ = seg_interp(s["p"].reshape(lead + (K, 12)), pv.reshape(lead + (K, 12)))
 
-    f_flat = s["f"].reshape(K, 12)
-    f = f_flat[seg] * (1 - tau)[:, None] + f_flat[seg + 1] * tau[:, None]
+    f = lerp(s["f"].reshape(lead + (K, 12)))
 
-    contact = contact_k[seg] * contact_k[seg + 1]
+    contact = contact_k[..., seg, :] * contact_k[..., seg + 1, :]
 
-    table = torch.cat([(times + t0)[:, None], r, th, p, v, w, f], dim=-1).to(torch.float32)
+    stamp = times + (t0[..., None] if isinstance(t0, torch.Tensor) else t0)
+    stamp = stamp.expand(lead + (T,))[..., None]
+    table = torch.cat([stamp, r, th, p, v, w, f], dim=-1).to(torch.float32)
     return table, contact
 
 

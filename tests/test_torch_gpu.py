@@ -180,3 +180,30 @@ def test_playback_on_card_matches_cpu(cuda):
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
     torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=0, atol=2e-5)
     torch.testing.assert_close(out["cuda"][3], out["cpu"][3], rtol=1e-3, atol=0)
+
+
+def test_runner_two_windows_on_card(cuda, tmp_path, monkeypatch):
+    """Two windows of the receding-horizon runner on the card (1.5 s windows
+    of K=25, 2 candidates): every solve goes through the kernel, the plans
+    converge, the robot stays up and advances, and the device buffer and its
+    host mirror hold the same rows."""
+    from qtos_torch.control.replan import RecedingHorizonRunner, RunnerConfig
+    from qtos_torch.solver import SolverConfig
+    from qtos_torch.terrain import make_terrain
+
+    monkeypatch.chdir(tmp_path)                  # a failed window writes ./logs/failed_window.npz
+    cfg = RunnerConfig(K=25, window_duration=1.5, f_steps=600, lookahead=900, n_candidates=2,
+                       stance_warmup_steps=100, max_windows=2,
+                       solver=SolverConfig(max_iters=20, tol=3e-3))
+    runner = RecedingHorizonRunner(make_terrain(["plane", "plane"]), (1.0, 0.0), cfg=cfg)
+    assert runner.device.type == "cuda" and runner.buffer.device.type == "cuda"
+    btd_solve.launches = 0
+    rep = runner.run(verbose=False)
+    assert rep.windows == 3 and rep.statuses == [0, 0, 0] and rep.sim_ticks == 1200
+    assert btd_solve.launches == 20 * rep.windows + cfg.escalate_iters * runner.escalations
+    assert not rep.aborted and rep.stance_holds == 0
+    assert 0.15 < rep.final_pos[2] < 0.35 and rep.final_pos[0] > 0.05
+    assert np.isfinite(rep.com_err_series).all() and rep.avg_com_err_per_s < 120.0
+    end = runner.buffer_end
+    np.testing.assert_array_equal(runner.buffer[:end].cpu().numpy(), runner.host_buf.read(0, end))
+    assert runner.host_buf.is_native

@@ -14,6 +14,16 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "qtos_tpu")
 
 # Every module of the port, by name: importing any of them must leave JAX out.
 PORT_MODULES = [
+    "qtos_torch.builder",
+    "qtos_torch.config.experiments",
+    "qtos_torch.control.replan",
+    "qtos_torch.runtime.bindings",
+    "qtos_torch.utils.containers",
+    "qtos_torch.utils.frames",
+    "qtos_torch.utils.logger",
+    "qtos_torch.utils.profiling",
+    "qtos_torch.utils.tracking",
+    "qtos_torch.utils.visual",
     "qtos_torch.convert",
     "qtos_torch.device",
     "qtos_torch.models.solo12",
@@ -42,7 +52,7 @@ PORT_MODULES = [
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts", "main_torch.py")]
     for root, _, files in os.walk(os.path.join(REPO, "qtos_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -276,21 +276,42 @@ def test_global_planner_queries_match(planners):
         assert abs(gp.time_at_position(xy) - jgp.time_at_position(xy)) < ATOL_PLAN
 
 
-def test_global_planner_uses_the_python_astar():
-    """On flat ground no soft cost applies and `qtos_tpu` may search with its
-    native A*; the port always uses the Python `astar`.  Both must give the
-    path of `qtos_tpu`'s Python `astar`."""
-    tiles, start, goal = ["plane", "plane"], (0.0, 0.0), (2.0, 0.4)
+@pytest.mark.parametrize("tiles,goal,native", [
+    (["plane", "plane"], (2.0, 0.4), True),              # flat: no soft cost anywhere
+    (["feasibility", "plane"], (2.6, 0.0), False),       # pillars: the soft cost applies
+], ids=["flat", "pillars"])
+def test_global_planner_picks_the_search_of_the_reference(tiles, goal, native, monkeypatch):
+    """Both packages search with their native A* where no soft cost applies
+    and with the Python `astar` (which takes the cost) elsewhere, and give
+    the same path."""
+    import qtos_tpu.planner.global_planner as j_gp_mod
+    import qtos_tpu.runtime as j_runtime
+    import qtos_torch.planner.global_planner as t_gp_mod
+
+    calls = []
+
+    def spy(mod, name, tag):
+        inner = getattr(mod, name)
+
+        def wrapped(*args, **kw):
+            calls.append((tag, kw.get("cost") is not None))
+            return inner(*args, **kw)
+        monkeypatch.setattr(mod, name, wrapped)
+
+    assert t_gp_mod.native_available() and j_runtime.native_available()
+    spy(t_gp_mod, "native_astar", "t-native")
+    spy(t_gp_mod, "astar", "t-python")
+    spy(j_runtime, "native_astar", "j-native")
+    spy(j_gp_mod, "astar", "j-python")
+    start = (0.0, 0.0)
     gp = GlobalPlanner(make_terrain(tiles, device="cpu"), start, goal)
     jgp = JGlobalPlanner(j_make_terrain(tiles), start, goal)
-    assert not gp.blocked.any()
-    cells = j_astar(gp.blocked, gp._to_cell(start), gp._to_cell(goal))
-    pts = np.stack([gp._to_world(c) for c in cells])
-    pts[0], pts[-1] = start, goal
-    length = float(np.linalg.norm(np.diff(gp._decimate(pts), axis=0), axis=1).sum())
-    assert abs(gp.path_length - length) < 1e-9
-    # the native search may pick another of the equally short routes
+    want = ("native", False) if native else ("python", True)
+    assert calls == [(f"t-{want[0]}", want[1]), (f"j-{want[0]}", want[1])]
+    assert gp.blocked.any() != native
+    np.testing.assert_array_equal(gp.blocked, jgp.blocked)
     assert abs(gp.path_length - jgp.path_length) < ATOL_PLAN
+    np.testing.assert_allclose(gp._dense_xy, jgp._dense_xy, atol=ATOL_PLAN)
 
 
 def test_global_planner_blocked_argument_and_no_path(tmp_path):
