@@ -11,8 +11,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   1. the card's name and power limit (nvidia-smi);
   2. build csrc/btd.cu with nvcc for sm_90a (ptxas report: registers);
   3. kernel vs plain version on random SPD systems (the shapes of the
-     tests and those of the driven paths: B=1, K=33; B=20, K=25; B=4, K=41;
-     B=8192, K=41; n=36) and on a Levenberg-Marquardt system of the main path;
+     tests and those of the driven paths: B=1, K=33; B=20, K=25; B=4, B=64,
+     B=1024 and B=8192, K=41; B=3 and B=512, K=13; n=36) and on a Levenberg-Marquardt system of the main path;
      times of the kernel, the plain version, the library Thomas loop, and
      the bound; the kernel's GB/s against the bound's bytes
      and against the bytes its design moves, its GFLOP/s, registers, shared
@@ -26,9 +26,22 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      phase 4's B=1024 result played in one batched call, with wall time, ms
      per tick and episode-ticks per second; (c) 4 of those episodes, 500
      ticks, on the card against the CPU;
+     (d) exp_2's first riser: one window over step_2's riser, solved on the
+     CPU, played on the card and on the CPU from the same table and start
+     state in lock step: the first tick and leaf at which they part, and
+     how far apart they end;
   7. planner: the solver-probed feasibility map of the pillar tile (one
      solve_batch over every candidate hop, K=25), the kernel's launches and
-     the failed hops, then A* and the global planner over that map.
+     the failed hops, then A* and the global planner over that map;
+  8. the receding-horizon runner: one replan timed alone, the exp_1 preset
+     walked to its goal, a two-window checkpoint restored bit for bit;
+  9. scenario sharding: solve_batch_sharded under NCCL at world size 1 on
+     the bench distribution at B=1024, equal bit for bit to solve_batch,
+     its gathered statuses equal to the local ones, and the kernel's
+     launches; over two ranks with an uneven batch when the host has two
+     cards.
+Phase 4 also profiles one solve_batch call at B=8192 (kernel time by name,
+the BTD kernel's and assembly's shares, the device's idle share).
 The second-last line is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
@@ -60,10 +73,12 @@ PEAK_F32_FLOPS = 67e12
 KERNEL_ATOL = 5e-4          # random diagonally dominant systems, O(1) solutions
 # The shapes of the tests, then those the driven paths give the kernel: the
 # quick start's single K=33 window (phase 6a), the feasibility probe's 20 K=25
-# windows (phase 7), the runner's 4 candidate windows per replan (phase 8), and
-# the bench batch (phase 4), which is the one timed.
+# windows (phase 7; its rescue pass gathers all 20), the runner's 4 candidate
+# windows per replan (phase 8), phase 5's B=64, the ranks' slices of phase 9's
+# two-card run (B=5 and 1023 over two ranks, K=13: 3 and 512 each), phase 4's
+# and phase 9's B=1024, and the bench batch (phase 4), which is the one timed.
 SHAPES = [(3, 7, 12), (2, 5, 36), (1, 9, 5), (5, 4, 6), (1, 33, 36), (20, 25, 36), (4, 41, 36),
-          (8192, 41, 36)]
+          (64, 41, 36), (3, 13, 36), (512, 13, 36), (1024, 41, 36), (8192, 41, 36)]
 
 
 def _synced(dev) -> float:
@@ -165,6 +180,39 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
     # orders of magnitude above that for other cards and library versions.
     if not (dpos <= 1e-4 and dq <= 5e-4 and rel <= 0.005):
         fail(line)
+    log(line + f" ({time.time() - t0:.1f} s)")
+
+
+# Phase 6d's gates: card against CPU over exp_2's first riser.  On an H100 the
+# position and contact leaves agreed to 1e-6 until tick 562 (the first
+# touchdown after a front foot has borne load on the riser's ramp) and ended
+# 7.9e-3 m and 2.65e-2 rad apart after the window's 2,501 ticks, where flat
+# ground holds 4.5e-7 m (6c).  The gates leave a margin of ~5x at the end and
+# require agreement until the feet reach the riser.
+RISER_DPOS, RISER_DQ, RISER_FIRST_TICK = 4e-2, 0.15, 400
+
+
+def phase_riser(dev, card, ticks=None) -> None:
+    """Phase 6d.  The window is solved and warmed up on the CPU and copied
+    to the card bit for bit, so only the playback differs."""
+    from qtos_torch.tools import riser
+
+    t0 = time.time()
+    terrain, table, status, s0 = riser.riser_window("cpu")
+    rep = riser.divergence(table, s0, terrain, dev, ticks=ticks)
+    leaves = ", ".join(f"{k} {v['first_tick']} / {v['max_abs_diff']:.2e}" for k, v in rep["leaves"].items())
+    line = (f"# phase 6d exp_2's first riser (window solved on the CPU from x {riser.START_X} to "
+            f"{riser.START_X + riser.GOAL_DX:g}, status {status}; {rep['ticks']} ticks on {card} against the CPU "
+            f"from one table and start state): first tick past {rep['threshold']:g}: {rep['first_tick']}, "
+            f"leaf {rep['first_leaf']}; of the position and contact leaves: {rep['first_position_tick']}; "
+            f"per leaf, first tick / largest |diff|: {leaves}; at the end "
+            f"|dpos| {rep['final_dpos']:.3e} m, |dq| {rep['final_dq']:.3e} rad, x {rep['final_x'][1]:.4f} on the "
+            f"card, {rep['final_x'][0]:.4f} on the CPU")
+    first = rep["first_position_tick"]
+    if not (status == 0 and rep["final_dpos"] <= RISER_DPOS and rep["final_dq"] <= RISER_DQ
+            and (first is None or first >= RISER_FIRST_TICK)):
+        fail(line + f" (gates: |dpos| <= {RISER_DPOS} m, |dq| <= {RISER_DQ} rad, position leaves agree "
+                    f"until tick {RISER_FIRST_TICK})")
     log(line + f" ({time.time() - t0:.1f} s)")
 
 
@@ -349,6 +397,61 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     return {"replan": replan_launches, "runner": launches}
 
 
+def phase_sharded(dev, card, B=1024, two_rank_batches=(5, 1023)) -> int:
+    """Phase 9.  Returns the kernel's launches in the sharded solve.  On the
+    CPU (a rehearsal, at smaller batches) the backend is gloo and the
+    two-rank run always goes."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from qtos_torch.ops.btd import btd_solve
+    from qtos_torch.parallel.distributed import global_scenario_mesh, initialize_multihost, solve_batch_collective
+    from qtos_torch.parallel.mesh import solve_batch_sharded
+    from qtos_torch.parallel.worker import free_port, run_ranks, solve_cases
+    from qtos_torch.solver import SolverConfig, default_spec, solve_batch
+    from qtos_torch.terrain import make_terrain
+
+    t0 = time.time()
+    K = 41
+    terrain = make_terrain(["plane"] * 3, device=dev)
+    cfg = SolverConfig(max_iters=3, rescue_iters=12)
+    specs = default_spec(terrain, goal_xy=(torch.linspace(0.3, 0.8, B, device=dev), 0.0), K=K, device=dev)
+    plain = solve_batch(specs, terrain, cfg)
+    on_card = dev.type == "cuda"
+    dev = initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device=dev.type)
+    try:
+        mesh = global_scenario_mesh(device=dev)
+        backend = dist.get_backend()
+        btd_solve.launches = 0
+        sharded = solve_batch_sharded(specs, terrain, cfg, mesh)
+        launches = btd_solve.launches
+        x_loc, st_loc, st_all = solve_batch_collective(specs, terrain, cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+    same_x, same_st = torch.equal(sharded.x, plain.x), torch.equal(sharded.status, plain.status)
+    gathered = torch.equal(st_all, st_loc) and torch.equal(st_all, plain.status) and torch.equal(x_loc, plain.x)
+    line = (f"# phase 9 solve_batch_sharded ({backend}, world size {mesh.world}, B={B}, K={K}) on {card}: "
+            f"x equal to solve_batch's bit for bit {same_x}, statuses {same_st}; gathered statuses equal the "
+            f"local ones {gathered}; {int((sharded.status == 0).sum())}/{B} converged; btd launches {launches}")
+    if not (backend == ("nccl" if on_card else "gloo") and same_x and same_st and gathered
+            and (launches >= cfg.max_iters or not on_card)):
+        fail(line)
+    log(line)
+    if not on_card or torch.cuda.device_count() >= 2:
+        outs = run_ranks(solve_cases, 2, dev.type, two_rank_batches, timeout=600)
+        ok = all(np.array_equal(o["status_gathered"], np.concatenate([r[i]["status_local"] for r in outs]))
+                 for i in range(len(two_rank_batches)) for o in (outs[0][i], outs[1][i]))
+        log(f"# phase 9 two ranks ({backend}, B={' and '.join(map(str, two_rank_batches))}, K=13): "
+            f"gathered statuses equal the ranks' own {ok}")
+        if not ok:
+            fail("phase 9: two ranks disagree")
+    else:
+        log("# phase 9 two ranks: skipped, fewer than two cards")
+    log(f"# phase 9 done in {time.time() - t0:.1f} s")
+    return launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -365,6 +468,7 @@ def main() -> None:
     from qtos_torch.solver.spec import index_spec
     from qtos_torch.solver.transcription import initial_guess, knot_aux
     from qtos_torch.terrain import make_terrain
+    from qtos_torch.tools import profile_solve
 
     dev = torch.device("cuda")
 
@@ -570,6 +674,13 @@ def main() -> None:
     log(f"# phase 4 breakdown B=8192: assemble {asm_ms:.3f} ms, btd_solve {solve_ms:.3f} ms per iteration")
     del Dm, Lm, gm
     torch.cuda.empty_cache()
+    t1 = time.time()
+    prof = profile_solve.profile_once(8192, K, dev)
+    profile_solve.report(prof)
+    if prof["idle_share"] == "not measured":
+        log("# phase 4 profile: the profiler reported no device activity")
+    torch.cuda.empty_cache()
+    log(f"# phase 4 profile took {time.time() - t1:.1f} s")
     log(f"# phase 4 done in {time.time() - t0:.1f} s")
 
     # ---- 5. CUDA vs CPU --------------------------------------------------
@@ -590,8 +701,10 @@ def main() -> None:
     log(line + f" ({time.time() - t0:.1f} s)")
 
     phase_playback(dev, card, terrain, *played)
+    phase_riser(dev, card)
     phase_planner(dev, card)
     runner_launches = phase_runner(dev, card)
+    sharded_launches = phase_sharded(dev, card)
 
     # ---- result lines ----------------------------------------------------
     row = dict(
@@ -603,6 +716,7 @@ def main() -> None:
         # the later paths' counts, each read after its own run
         launches_replan=runner_launches["replan"],
         launches_runner=runner_launches["runner"],
+        launches_sharded=sharded_launches,
         max_abs_err=max_err_all,
         max_err=max_err_all,
         **kernel_row,

@@ -13,6 +13,7 @@ asks for it (reference bool_map_search / 32-process Docker sweep).
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -76,3 +77,40 @@ def build(
     rcfg = runner_cfg or RunnerConfig(avg_speed=cfg.avg_speed, gait=cfg.gait)
     runner = RecedingHorizonRunner(terrain, goal, cfg=rcfg, blocked=blocked, device=dev)
     return Bundle(exp=cfg, terrain=terrain, robot=Solo12, runner=runner, blocked=blocked)
+
+
+def preset_runner_config(exp: ExperimentConfig, realtime: bool = False) -> RunnerConfig:
+    """The RunnerConfig `scripts/main_torch.py` runs a preset with (as
+    `scripts/main.py` builds it for `qtos_tpu`): the preset's speed and gait,
+    its raised swing apex over rough segments, its terrain-aware pacing,
+    controller profile and friction, and exp_8's obstacle spawns."""
+    from qtos_torch.control.loop import control_profile, gait_control_params
+
+    cfg = RunnerConfig(avg_speed=exp.avg_speed, gait=exp.gait, realtime=realtime)
+    if exp.swing_clearance > cfg.solver.swing_clearance:
+        # terrain-adaptive: only windows crossing a height discontinuity
+        # solve with the raised apex (see RunnerConfig.rough_clearance)
+        cfg.rough_clearance = exp.swing_clearance
+    cfg.rough_pace = exp.rough_pace
+    if exp.control_profile:
+        cfg.control = control_profile(exp.control_profile)
+    if exp.friction != 1.0:
+        base = cfg.control if cfg.control is not None else gait_control_params(exp.gait)
+        cfg.control = dataclasses.replace(base, sim=dataclasses.replace(base.sim, friction=exp.friction))
+    if exp.dynamic_terrain:
+        # exp_8: spawn a box obstacle mid-run (reference QTOS/simulation.py:
+        # 102-115 update -> GEOM_BOX at (1.0 + idx, 0, 0.24)); the solver and
+        # sim take terrain as data.  Spawn cadence: ~1 m of reaction distance
+        # ahead of the robot, like the reference's fixed (1.0 + idx, 0) spawn
+        # line; a box dropped nearly underfoot is a crash in any stack.
+        from qtos_torch.terrain.heightfield import add_box_obstacle
+
+        def terrain_update(window, terr):
+            if window in (2, 4):
+                x = 2.0 + 1.0 * (window // 2 - 1)
+                print(f"[dynamic terrain] spawning obstacle at x={x:.1f}")
+                return add_box_obstacle(terr, x, 0.0)
+            return terr
+
+        cfg.terrain_update = terrain_update
+    return cfg

@@ -18,7 +18,6 @@ summary names the device its times were taken on.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import os
 import subprocess
@@ -37,7 +36,9 @@ def build_parser():
     p.add_argument("--oneshot", "-t", action="store_true", help="single whole-path solve, no replanning")
     p.add_argument("--test", "-T", action="store_true", help="headless smoke test on canned trajectory")
     p.add_argument("--device", default=None, help="torch device (default: cuda)")
-    p.add_argument("--record", "-r", action="store_true", help="record realized joint trajectory CSV for hardware replay")
+    p.add_argument("--record", "-r", action="store_true",
+                   help="after the run, record a realized joint trajectory CSV for hardware replay "
+                        "(scripts/record_torch.py's path)")
     p.add_argument("--out", default=os.path.join("data", "torch"), help="artifact output dir")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--profile", nargs="?", const=os.path.join(LOG_DIR, "trace"), default=None,
@@ -76,8 +77,9 @@ def main(argv=None):
 
     import numpy as np
 
+    from qtos_torch.builder import preset_runner_config
     from qtos_torch.config import get_experiment
-    from qtos_torch.control.replan import RecedingHorizonRunner, RunnerConfig
+    from qtos_torch.control.replan import RecedingHorizonRunner
     from qtos_torch.device import resolve_device
     from qtos_torch.terrain import make_terrain
 
@@ -110,45 +112,15 @@ def main(argv=None):
               f"({int(blocked.sum())} blocked cells)")
         save_map_plot(blocked, os.path.join(args.out, "bool_map.png"))
 
-    cfg = RunnerConfig(avg_speed=exp.avg_speed, gait=exp.gait)
-    if exp.swing_clearance > cfg.solver.swing_clearance:
-        # terrain-adaptive: only windows crossing a height discontinuity
-        # solve with the raised apex (see RunnerConfig.rough_clearance)
-        cfg.rough_clearance = exp.swing_clearance
-    cfg.rough_pace = exp.rough_pace
-    cfg.realtime = args.realtime
-    if exp.control_profile:
-        from qtos_torch.control.loop import control_profile
-
-        cfg.control = control_profile(exp.control_profile)
-    if exp.friction != 1.0:
-        from qtos_torch.control.loop import gait_control_params
-
-        base = cfg.control if cfg.control is not None else gait_control_params(exp.gait)
-        cfg.control = dataclasses.replace(
-            base, sim=dataclasses.replace(base.sim, friction=exp.friction))
-    if exp.dynamic_terrain:
-        # exp_8: spawn a box obstacle mid-run (reference QTOS/simulation.py:
-        # 102-115 update -> GEOM_BOX at (1.0 + idx, 0, 0.24)); the solver and
-        # sim take terrain as data
-        from qtos_torch.terrain.heightfield import add_box_obstacle
-
-        # Spawn cadence: ~1 m of reaction distance ahead of the robot, like
-        # the reference's fixed (1.0 + idx, 0) spawn line — a box dropped
-        # nearly underfoot is a crash in any stack.
-        def terrain_update(window, terr):
-            if window in (2, 4):
-                x = 2.0 + 1.0 * (window // 2 - 1)
-                print(f"[dynamic terrain] spawning obstacle at x={x:.1f}")
-                return add_box_obstacle(terr, x, 0.0)
-            return terr
-
-        cfg.terrain_update = terrain_update
+    cfg = preset_runner_config(exp, realtime=args.realtime)
     if args.oneshot:
         return run_oneshot(terrain, goal, cfg, args, info)
 
     runner = RecedingHorizonRunner(terrain, goal, cfg=cfg, blocked=blocked, device=dev)
     save_plan_plot(runner.planner, os.path.join(args.out, "global_plan.png"))
+    from qtos_torch.ops.btd import btd_solve
+
+    btd_solve.launches = 0
     t0 = time.time()
     if args.profile:
         from qtos_torch.utils.profiling import trace
@@ -159,6 +131,7 @@ def main(argv=None):
     else:
         report = runner.run()
     wall = time.time() - t0
+    launches = btd_solve.launches
 
     save_tracking_artifacts(report, args.out)
     if args.visual and report.ref_table is not None and len(report.ref_table):
@@ -172,9 +145,16 @@ def main(argv=None):
         for frac in (0.0, 0.5, 0.9):
             vp.render(at_row=int(frac * (T - 1)), name=f"plan_{int(frac*100):02d}")
         print(f"plan-preview artifacts in {os.path.join(args.out, 'visual')}")
+    recorded_ok = True
     if args.record:
-        print("note: the hardware-replay CSV comes from control.loop.playback_recorded "
-              "+ record_csv on one table; the runner does not record joints")
+        # the runner does not record joints: the hardware-replay CSV comes
+        # from scripts/record_torch.py's path (one solved window over the
+        # whole path, played back recorded) for the same preset and goal
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from record_torch import record
+
+        rec = record(exp.name, list(goal), out=os.path.join(args.out, "traj"), device=dev)
+        recorded_ok = rec["status"] == 0
     summary = dict(
         experiment=exp.name,
         reached_goal=report.reached_goal,
@@ -189,6 +169,9 @@ def main(argv=None):
         stance_holds=report.stance_holds,
         aborted=report.aborted,
         statuses=report.statuses,
+        # the BTD kernel's launches in the run (0 off the card: the plain
+        # version runs there)
+        btd_launches=launches,
         wall_time_s=wall,
         # the times above (solve_ms_p50, wall_time_s) were taken on:
         **info,
@@ -198,7 +181,7 @@ def main(argv=None):
         summary["realtime_factor"] = round(report.realtime_factor, 3)
     write_summary(f"experiment_data_{exp.name}.out", summary)
     print(json.dumps(summary, indent=2))
-    return 0 if report.reached_goal else 1
+    return 0 if report.reached_goal and recorded_ok else 1
 
 
 def write_summary(name: str, summary: dict) -> None:

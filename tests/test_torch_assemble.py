@@ -23,7 +23,8 @@ from qtos_tpu.terrain import make_terrain as j_make_terrain
 from qtos_tpu.ops.rotations import omega_to_euler_rate as j_rate
 
 from qtos_torch.convert import config_from_reference, spec_from_reference, terrain_from_reference
-from qtos_torch.solver.assemble import assemble, euler_rate_jac, rot_derivs, wdot_and_derivs
+from qtos_torch.solver.assemble import assemble
+from qtos_torch.solver.jacobians import euler_rate_jac, rot_derivs, wdot_and_derivs
 
 TOL = dict(atol=2e-4, rtol=2e-4)
 B, K = 4, 13

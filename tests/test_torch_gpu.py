@@ -207,3 +207,76 @@ def test_runner_two_windows_on_card(cuda, tmp_path, monkeypatch):
     end = runner.buffer_end
     np.testing.assert_array_equal(runner.buffer[:end].cpu().numpy(), runner.host_buf.read(0, end))
     assert runner.host_buf.is_native
+
+
+# Card against CPU over exp_2's first riser: the first RISER_TICKS ticks of the
+# window, which cover the first touchdown after a front foot has borne load on
+# the riser's ramp (tick 562; chip_smoke.py phase 6d plays all 2,501 and holds
+# the same gates, PERF.md has the readings).
+RISER_TICKS = 700
+RISER_DPOS, RISER_DQ, RISER_FIRST_TICK = 4e-2, 0.15, 400
+
+
+def test_riser_playback_on_card_matches_cpu(cuda):
+    """The exp_2 window over step_2's riser (`qtos_torch.tools.riser`), solved
+    and warmed up on the CPU, played from the same table and start state on
+    the card and on the CPU in lock step."""
+    from qtos_torch.tools import riser
+
+    terrain, table, status, s0 = riser.riser_window("cpu")
+    assert status == 0
+    rep = riser.divergence(table, s0, terrain, cuda, ticks=RISER_TICKS)
+    assert rep["ticks"] == RISER_TICKS
+    assert rep["first_position_tick"] is None or rep["first_position_tick"] >= RISER_FIRST_TICK, rep
+    assert rep["final_dpos"] <= RISER_DPOS and rep["final_dq"] <= RISER_DQ, rep
+
+
+def _bench_specs(dev, B, K=41):
+    from qtos_torch.solver import SolverConfig, default_spec
+    from qtos_torch.terrain import make_terrain
+
+    terrain = make_terrain(["plane"] * 3, device=dev)
+    specs = default_spec(terrain, goal_xy=(torch.linspace(0.3, 0.8, B, device=dev), 0.0), K=K, device=dev)
+    return terrain, specs, SolverConfig(max_iters=3, rescue_iters=12)
+
+
+def test_sharded_solve_at_world_size_one_equals_solve_batch(cuda):
+    """NCCL with one rank: the slice is the whole batch, so the arithmetic and
+    the result are solve_batch's, bit for bit; the gathers go through NCCL."""
+    import torch.distributed as dist
+
+    from qtos_torch.parallel.distributed import global_scenario_mesh, initialize_multihost, solve_batch_collective
+    from qtos_torch.parallel.mesh import solve_batch_sharded
+    from qtos_torch.parallel.worker import free_port
+    from qtos_torch.solver import solve_batch
+
+    terrain, specs, cfg = _bench_specs(cuda, 64)
+    plain = solve_batch(specs, terrain, cfg)
+    dev = initialize_multihost(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    try:
+        mesh = global_scenario_mesh(device=dev)
+        assert dist.get_backend() == "nccl" and mesh.world == 1
+        btd_solve.launches = 0
+        res = solve_batch_sharded(specs, terrain, cfg, mesh)
+        assert btd_solve.launches >= cfg.max_iters
+        x_loc, st_loc, st_all = solve_batch_collective(specs, terrain, cfg, mesh)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(res.x, plain.x) and torch.equal(res.status, plain.status)
+    assert torch.equal(st_all, st_loc) and torch.equal(x_loc, plain.x)
+
+
+def test_sharded_solve_over_two_cards():
+    """Two NCCL ranks, one card each, with batches the world size does not
+    divide: every rank's gathered statuses are the ranks' own, concatenated."""
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    from qtos_torch.parallel.worker import run_ranks, solve_cases
+
+    outs = run_ranks(solve_cases, 2, "cuda", (5, 1023), timeout=600)
+    for i, B in enumerate((5, 1023)):
+        local = np.concatenate([r[i]["status_local"] for r in outs])
+        assert local.shape == (B,)
+        for r in outs:
+            np.testing.assert_array_equal(r[i]["status_gathered"], local)
+            assert r[i]["x"].shape == (B, 13, 36)

@@ -26,14 +26,20 @@ PORT_MODULES = [
     "qtos_torch.utils.visual",
     "qtos_torch.convert",
     "qtos_torch.device",
+    "qtos_torch.entry",
     "qtos_torch.models.solo12",
     "qtos_torch.ops.batch_linalg",
     "qtos_torch.ops.btd",
     "qtos_torch.ops.rotations",
     "qtos_torch.ops.splines",
     "qtos_torch.ops.tridiag",
+    "qtos_torch.parallel.distributed",
+    "qtos_torch.parallel.mesh",
+    "qtos_torch.parallel.worker",
     "qtos_torch.solver.assemble",
     "qtos_torch.solver.gait",
+    "qtos_torch.solver.jacobians",
+    "qtos_torch.solver.normal_eq",
     "qtos_torch.solver.sampler",
     "qtos_torch.solver.solve",
     "qtos_torch.solver.spec",
@@ -47,12 +53,16 @@ PORT_MODULES = [
     "qtos_torch.planner.global_planner",
     "qtos_torch.planner.feasibility",
     "qtos_torch.tools.compare_btd",
+    "qtos_torch.tools.crossover",
+    "qtos_torch.tools.profile_solve",
     "qtos_torch.tools.profile_tick",
+    "qtos_torch.tools.riser",
 ]
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "scripts", "main_torch.py")]
+    out = [os.path.join(REPO, "chip_smoke.py")]
+    out += [os.path.join(REPO, "scripts", f"{name}_torch.py") for name in ("main", "record", "sweep")]
     for root, _, files in os.walk(os.path.join(REPO, "qtos_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
