@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Smoke run of qtos_torch on one CUDA card: builds the kernel from the
-checkout, holds it against its plain PyTorch version, drives the batched
+"""Smoke run of qtos_torch on one CUDA card: builds both kernels from the
+checkout, holds each against its plain PyTorch version, drives the batched
 gait-NLP solve at bench width, plays solved trajectories through the physics,
 probes a feasibility map and plans over it, walks the exp_1 preset to its goal
-with the receding-horizon runner, and checks the results.
+with the receding-horizon runner, paces a walk in real time, and checks the
+results.
 
     python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build csrc/btd.cu with nvcc for sm_90a (ptxas report: registers);
-  3. kernel vs plain version on random SPD systems (the shapes of the
+  2. build csrc/btd.cu and csrc/tick.cu with nvcc for sm_90a, one nvcc each,
+     both at once (ptxas report: registers);
+  3. BTD kernel vs plain version on random SPD systems (the shapes of the
      tests and those of the driven paths: B=1, K=33; B=20, K=25; B=4, B=64,
      B=1024 and B=8192, K=41; B=3 and B=512, K=13; n=36) and on a Levenberg-Marquardt system of the main path;
      times of the kernel, the plain version, the library Thomas loop, and
@@ -21,20 +23,26 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      goals 0.3..0.8, max_iters=3, rescue_iters=12) at B=1024 and B=8192,
      with the kernel's launch counter, convergence and the 1 kHz table;
   5. the port on CUDA against the port on CPU at B=64, K=41;
-  6. physics playback: (a) the library quick start (plan, solve, sample,
-     500 warm-up ticks, 1 kHz playback) on the card; (b) 256 episodes of
-     phase 4's B=1024 result played in one batched call, with wall time, ms
-     per tick and episode-ticks per second; (c) 4 of those episodes, 500
-     ticks, on the card against the CPU;
+  6. physics playback, through the tick kernel: (a) the library quick start
+     (plan, solve, sample, 500 warm-up ticks, 1 kHz playback) on the card;
+     (b) 256 episodes of phase 4's B=1024 result played in one batched call,
+     with wall time, ms per tick and episode-ticks per second; (c) 4 of
+     those episodes, 500 ticks, on the card against the CPU;
      (d) exp_2's first riser: one window over step_2's riser, solved on the
      CPU, played on the card and on the CPU from the same table and start
-     state in lock step: the first tick and leaf at which they part, and
-     how far apart they end;
+     state in lock step with the plain tick: the first tick and leaf at
+     which they part, and how far apart they end;
+     (e) the tick kernel against its plain version: B=1 and B=256 over 6b's
+     2,501-tick tables, both on the card, with ms per tick of each; the
+     kernel on the card against the plain loop on the CPU over 6d's window;
+     the kernel's bound;
   7. planner: the solver-probed feasibility map of the pillar tile (one
      solve_batch over every candidate hop, K=25), the kernel's launches and
      the failed hops, then A* and the global planner over that map;
   8. the receding-horizon runner: one replan timed alone, the exp_1 preset
-     walked to its goal, a two-window checkpoint restored bit for bit;
+     walked to its goal, a two-window checkpoint restored bit for bit, and
+     (d) `qtos_tpu`'s real-time canary walk (plane x2 to (0.8, 0),
+     `realtime=True`, 6 windows) paced at 1 kHz;
   9. scenario sharding: solve_batch_sharded under NCCL at world size 1 on
      the bench distribution at B=1024, equal bit for bit to solve_batch,
      its gathered statuses equal to the local ones, and the kernel's
@@ -48,6 +56,7 @@ The second-last line is {"kernels": [...]}; the last is
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -90,9 +99,23 @@ def _synced(dev) -> float:
     return time.perf_counter()
 
 
-def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) -> None:
-    """Phase 6.  `x` (B, K, NV) and `specs` are solved windows on `terrain`
-    (phase 4's, every fourth scenario)."""
+def _zero_tick_counts():
+    from qtos_torch.ops.tick import tick_hold, tick_scan
+
+    tick_scan.launches = tick_hold.launches = 0
+
+
+def _tick_counts() -> tuple:
+    """(playback launches, hold launches) of the tick kernel."""
+    from qtos_torch.ops.tick import tick_hold, tick_scan
+
+    return tick_scan.launches, tick_hold.launches
+
+
+def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) -> dict:
+    """Phase 6 (a-c).  `x` (B, K, NV) and `specs` are solved windows on
+    `terrain` (phase 4's, every fourth scenario).  Returns 6b's tables,
+    warmed-up start states and kernel launches for phase 6e."""
     import torch
 
     from qtos_torch.control import ControlParams, playback, stance_warmup
@@ -104,13 +127,20 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
 
     params = ControlParams()
 
+    on_card = dev.type == "cuda"          # main() always passes the card
+
     def episode(tables, terr):
-        """Warm-up and playback; (final, metrics, warm-up s, playback s)."""
+        """Warm-up and playback, each one launch of the tick kernel on the
+        card; (final, metrics, warm-up s, playback s, start state)."""
+        _zero_tick_counts()
         t0 = _synced(tables.device)
         s0 = stance_warmup(state_from_row(tables[..., 0, :], terr, params), terr, params, warmup)
         t1 = _synced(tables.device)
         final, m = playback(tables, s0, terr, params)
-        return final, m, t1 - t0, _synced(tables.device) - t1
+        t2 = _synced(tables.device)
+        if tables.device.type == "cuda" and _tick_counts() != (1, 1):
+            fail(f"phase 6: warm-up and playback launched the tick kernel {_tick_counts()} times, not (1, 1)")
+        return final, m, t1 - t0, t2 - t1, s0
 
     # 6a: the library quick start
     t0 = time.time()
@@ -123,7 +153,7 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
         fail(f"phase 6a: the quick start's solve launched the kernel {launches} times in {iters} iterations")
     status = int(res.status)
     table, _ = sample_trajectory(res.x, spec)
-    final, m, warm_s, play_s = episode(table, terr2)
+    final, m, warm_s, play_s, _ = episode(table, terr2)
     T1 = table.shape[0]
     ms_tick_1 = play_s / T1 * 1e3
     plan_end = table[-1, 1:4].cpu()
@@ -133,7 +163,8 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
             f"{iters} iterations, avg_com_err_per_s {err_s:.2f}, "
             f"final pos ({pos[0]:.4f}, {pos[1]:.4f}, {pos[2]:.4f}) vs plan end "
             f"({plan_end[0]:.4f}, {plan_end[1]:.4f}, {plan_end[2]:.4f}); warm-up {warmup} ticks "
-            f"{warm_s:.2f} s, playback {play_s:.2f} s = {ms_tick_1:.3f} ms per tick at B=1 on {card}")
+            f"{warm_s:.3f} s, playback {play_s:.3f} s = {ms_tick_1:.4f} ms per tick at B=1 on {card}; tick kernel "
+            f"launches (playback, hold) {_tick_counts() if on_card else 'none: the CPU runs the plain loop'}")
     if not (status == 0 and err_s < 60.0 and abs(float(pos[0] - plan_end[0])) < 0.12
             and abs(float(pos[2] - plan_end[2])) < 0.03):
         fail(line)
@@ -143,8 +174,10 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
     t0 = time.time()
     B = x.shape[0]
     tables, _ = sample_trajectory(x, specs)
+    tables = tables.contiguous()
     T = tables.shape[1]
-    final, m, warm_s, play_s = episode(tables, terrain)
+    final, m, warm_s, play_s, s0_b = episode(tables, terrain)
+    counts_b = _tick_counts()
     finite = all(bool(torch.isfinite(t).all()) for t in
                  (m.com_err, m.ee_err, m.pos, m.feet, m.yaw, final.pos, final.q, final.qd))
     goal_x = specs.goal_r[:, 0]
@@ -153,8 +186,8 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
     mean_err = m.com_err.mean(dim=-1)
     ms_tick = play_s / T * 1e3
     line = (f"# phase 6b playback B={B} (K={x.shape[1]}, tables {tuple(tables.shape)}): warm-up {warmup} ticks "
-            f"{warm_s:.2f} s, playback {play_s:.2f} s = {ms_tick:.3f} ms per tick, "
-            f"{B * T / play_s:.0f} episode-ticks/s (B=1: {ms_tick_1:.3f} ms per tick) on {card}; "
+            f"{warm_s:.3f} s, playback {play_s:.3f} s = {ms_tick:.4f} ms per tick, "
+            f"{B * T / play_s:.0f} episode-ticks/s (B=1: {ms_tick_1:.4f} ms per tick) on {card}; "
             f"finite {finite}, final z in [{float(final.pos[:, 2].min()):.3f}, {float(final.pos[:, 2].max()):.3f}], "
             f"min final x / goal {float((final.pos[:, 0] / goal_x).min()):.3f}, "
             f"mean com_err max {float(mean_err.max()):.4f} m, "
@@ -165,22 +198,26 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
 
     # 6c: the card against the CPU on 4 of those episodes
     t0 = time.time()
-    short = tables[:4, :compare_ticks]
+    short = tables[:4, :compare_ticks].contiguous()
     cpu_terr = map_tensors(terrain, lambda t: t.cpu())
-    f_dev, m_dev, _, _ = episode(short, terrain)
-    f_cpu, m_cpu, _, _ = episode(short.cpu(), cpu_terr)
+    f_dev, m_dev, *_ = episode(short, terrain)
+    f_cpu, m_cpu, *_ = episode(short.cpu(), cpu_terr)
     dpos = float((f_dev.pos.cpu() - f_cpu.pos).abs().max())
     dq = float((f_dev.q.cpu() - f_cpu.q).abs().max())
     rel = float(((m_dev.avg_com_err_per_s.cpu() - m_cpu.avg_com_err_per_s).abs()
                  / m_cpu.avg_com_err_per_s).max())
-    line = (f"# phase 6c CUDA vs CPU, 4 episodes, {warmup} warm-up + {short.shape[1]} ticks: max |dpos| {dpos:.3e} m, "
+    line = (f"# phase 6c CUDA (tick kernel) vs CPU (plain loop), 4 episodes, {warmup} warm-up + {short.shape[1]} "
+            f"ticks: max |dpos| {dpos:.3e} m, "
             f"max |dq| {dq:.3e} rad, avg_com_err_per_s differs by {100 * rel:.3f} %")
-    # Both devices run the same float32 operations; on flat ground every run
-    # on an H100 gave 4.5e-7 m, 2.2e-6 rad and 0.001 %.  The gates leave two
-    # orders of magnitude above that for other cards and library versions.
+    # The card runs the tick kernel and the CPU the plain loop, the same
+    # float32 operations in the same order; on flat ground every run of the
+    # plain loop on an H100 against the CPU gave 4.5e-7 m, 2.2e-6 rad and
+    # 0.001 %.  The gates leave two orders of magnitude above that for other
+    # cards and library versions.
     if not (dpos <= 1e-4 and dq <= 5e-4 and rel <= 0.005):
         fail(line)
     log(line + f" ({time.time() - t0:.1f} s)")
+    return {"tables": tables, "s0": s0_b, "terrain": terrain, "launches": counts_b}
 
 
 # Phase 6d's gates: card against CPU over exp_2's first riser.  On an H100 the
@@ -192,9 +229,11 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
 RISER_DPOS, RISER_DQ, RISER_FIRST_TICK = 4e-2, 0.15, 400
 
 
-def phase_riser(dev, card, ticks=None) -> None:
+def phase_riser(dev, card, ticks=None) -> tuple:
     """Phase 6d.  The window is solved and warmed up on the CPU and copied
-    to the card bit for bit, so only the playback differs."""
+    to the card bit for bit, so only the playback differs.  Both devices
+    step the plain tick (`riser.divergence`).  Returns the window (terrain,
+    table, start state on the CPU) for phase 6e."""
     from qtos_torch.tools import riser
 
     t0 = time.time()
@@ -214,6 +253,182 @@ def phase_riser(dev, card, ticks=None) -> None:
         fail(line + f" (gates: |dpos| <= {RISER_DPOS} m, |dq| <= {RISER_DQ} rad, position leaves agree "
                     f"until tick {RISER_FIRST_TICK})")
     log(line + f" ({time.time() - t0:.1f} s)")
+    return terrain, table, s0
+
+
+# Phase 6e's gates on flat ground: 6c's (|dpos| m, |dq| rad, relative
+# avg_com_err_per_s) over 6c's 500 ticks of playback.  Past ~500 ticks two
+# float32 versions of the loop part as the gait starts: on an H100 the plain
+# loop on the card and on the CPU ended 6b's 2,501 ticks 4.4e-2 m apart at
+# worst over 256 episodes, the kernel and the card's plain loop 3.5e-2 m.  So
+# over the whole table the kernel is held to 6c's gates or to twice what the
+# two plain loops differ by on the same inputs, whichever is larger.
+FLAT_GATES = (1e-4, 5e-4, 0.005)
+COMPARE_TICKS = 500
+
+def tick_ops_per_tick() -> int:
+    """Floating-point results of one plain tick at B=1 on the CPU: the output
+    elements of every aten operation `_tick` dispatches that is not a view
+    (copies for `torch.stack` and `torch.cat` included)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from qtos_torch.control import ControlParams
+    from qtos_torch.control.loop import _tick, plan_joint_targets, state_from_row
+    from qtos_torch.terrain import make_terrain
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view:
+                for t in (out if isinstance(out, (tuple, list)) else (out,)):
+                    if isinstance(t, torch.Tensor) and t.is_floating_point():
+                        Count.n += t.numel()
+            return out
+
+    terr = make_terrain(["plane"], device="cpu")
+    params = ControlParams()
+    row = torch.zeros(37)
+    row[1:4] = torch.tensor([0.0, 0.0, 0.24])
+    row[7:19] = torch.tensor([0.21, 0.19, 0.0, 0.21, -0.19, 0.0, -0.21, 0.19, 0.0, -0.21, -0.19, 0.0])
+    row[[27, 30, 33, 36]] = 7.4
+    state = state_from_row(row, terr, params)
+    carry = (state, plan_joint_targets(row, params)[0], torch.zeros(4, 3), torch.zeros(3), torch.zeros(()))
+    with Count():
+        _tick(carry, row, terr, params)
+    return Count.n
+
+
+def _trace_spread(a: dict, b: dict, lead: int, n: int) -> tuple:
+    """Two playbacks' traces over their first n ticks (T axis `lead`): the
+    largest |dpos|, the largest |dq| and the largest relative difference of
+    avg_com_err_per_s."""
+    from qtos_torch.control.loop import _metrics
+
+    a, b = ({k: v.narrow(lead, 0, n).cpu() for k, v in x.items()} for x in (a, b))
+    ma, mb = _metrics(a, n), _metrics(b, n)
+    rel = ((ma.avg_com_err_per_s - mb.avg_com_err_per_s).abs() / mb.avg_com_err_per_s).max()
+    return float((a["pos"] - b["pos"]).abs().max()), float((a["q"] - b["q"]).abs().max()), float(rel)
+
+
+def _parting(a: dict, b: dict, T: int) -> tuple:
+    """Per episode the largest |dpos| over the T ticks, and the first tick
+    past 1e-6: (the median of the first, the earliest of the second)."""
+    import torch
+
+    d = (a["pos"].cpu() - b["pos"].cpu()).abs().amax(dim=-1).reshape(-1, T)
+    past = d > 1e-6
+    first = int(torch.nonzero(past.any(dim=0))[0]) if bool(past.any()) else None
+    return float(d.amax(dim=1).median()), first
+
+
+def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_flops) -> dict:
+    """Phase 6e: the tick kernel against its plain version, with the
+    runner's trot controller.  `played` is phase 6's 6b (tables (256, 2501,
+    37) and warmed-up states), `riser_window` phase 6d's window.  Returns the
+    kernel's row of the result line."""
+    import dataclasses
+
+    import torch
+
+    from qtos_torch.control.loop import _scan_ticks, gait_control_params
+    from qtos_torch.control.replan import RunnerConfig
+    from qtos_torch.ops import tick as tick_mod
+    from qtos_torch.ops.tick import tick_scan
+    from qtos_torch.solver.spec import map_tensors
+    from qtos_torch.tools import riser
+
+    t0 = time.time()
+    params = gait_control_params("trot")
+    tables, s0 = played["tables"], played["s0"]
+    ep = lambda s, i: dataclasses.replace(s, **{f.name: getattr(s, f.name)[i].contiguous()  # noqa: E731
+                                                for f in dataclasses.fields(s)})
+    out = {}
+    max_err = 0.0
+    cpu = lambda t: t.cpu()                                                  # noqa: E731
+    terr_cpu = map_tensors(played["terrain"], cpu)
+    for B in (1, tables.shape[0]):
+        tab = tables[0] if B == 1 else tables               # B=1 is one unbatched episode, as the runner's
+        st = ep(s0, 0) if B == 1 else s0
+        T = tab.shape[-2]
+        _zero_tick_counts()
+        t1 = _synced(dev)
+        fk, tk = tick_scan(tab, st, played["terrain"], params)
+        kernel_s = _synced(dev) - t1
+        launches = _tick_counts()
+        t1 = _synced(dev)
+        fp, tp = _scan_ticks(tab, st, played["terrain"], params)
+        plain_s = _synced(dev) - t1
+        fc, tc = _scan_ticks(tab.cpu(), map_tensors(st, cpu), terr_cpu, params)   # the yardstick of rounding
+        ms = kernel_s * 1e3                 # a CPU rehearsal runs the plain loop thrice
+        if dev.type == "cuda":              # main() always passes the card
+            if launches != (1, 0) or _tick_counts() != (1, 0):
+                fail(f"phase 6e B={B}: the kernel launched {launches} times for one call, "
+                     f"{_tick_counts()} after the plain loops")
+            # the kernel's time without the host's first-call work: CUDA events over 3 calls
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(3):
+                tick_scan(tab, st, played["terrain"], params)
+            end.record()
+            torch.cuda.synchronize()
+            ms = start.elapsed_time(end) / 3
+
+        lead = tab.dim() - 2                               # the T axis of every trace
+        early = _trace_spread(tk, tp, lead, COMPARE_TICKS)
+        full_k, full_pp = _trace_spread(tk, tp, lead, T), _trace_spread(tp, tc, lead, T)
+        part_k, part_pp = _parting(tk, tp, T), _parting(tp, tc, T)
+        allowed = [max(g, 2 * v) for g, v in zip(FLAT_GATES, full_pp)]
+        max_err = max(max_err, *early[:2])
+        line = (f"# phase 6e tick kernel vs plain loop, both on the card, B={B}, {T} ticks on flat ground: first "
+                f"{COMPARE_TICKS} ticks |dpos| {early[0]:.3e} m, |dq| {early[1]:.3e} rad, avg_com_err_per_s "
+                f"{100 * early[2]:.4f} % apart (6c's gates {FLAT_GATES}); all {T} ticks {full_k[0]:.3e} m, "
+                f"{full_k[1]:.3e} rad, {100 * full_k[2]:.4f} %, where the plain loop on the card and on the CPU are "
+                f"{full_pp[0]:.3e} m, {full_pp[1]:.3e} rad, {100 * full_pp[2]:.4f} % apart (gates: the larger of 6c's and "
+                f"twice that); per episode the median largest |dpos| {part_k[0]:.3e} m and the earliest tick past "
+                f"1e-6 {part_k[1]} (the plain loops: {part_pp[0]:.3e} m, tick {part_pp[1]}); kernel {ms:.3f} ms per call (CUDA events, 3 calls) = {ms / T * 1e3:.3f} us per tick "
+                f"({kernel_s * 1e3:.3f} ms host clock, first call), plain loop {plain_s * 1e3:.1f} ms = "
+                f"{plain_s / T * 1e3:.3f} ms per tick, on {card}")
+        if not (all(e <= g for e, g in zip(early, FLAT_GATES)) and all(f <= g for f, g in zip(full_k, allowed))):
+            fail(line)
+        log(line)
+        out[B] = dict(ms=ms, plain_ms=plain_s * 1e3, T=T)
+
+    # The kernel on the card against the plain loop on the CPU over 6d's window.
+    terrain, table, s_cpu = riser_window
+    rparams = gait_control_params(RunnerConfig().gait)
+    to_dev = lambda t: t.to(dev)                                              # noqa: E731
+    fk, tk = tick_scan(to_dev(table), map_tensors(s_cpu, to_dev), map_tensors(terrain, to_dev), rparams)
+    fp, tp = _scan_ticks(table, s_cpu, terrain, rparams)
+    T = table.shape[0]
+    d = torch.maximum((tk["pos"].cpu() - tp["pos"]).abs().amax(dim=-1), (tk["q"].cpu() - tp["q"]).abs().amax(dim=-1))
+    parted = torch.nonzero(d > riser.THRESHOLD).flatten()
+    first = int(parted[0]) if parted.numel() else None
+    dpos = float((fk.pos.cpu() - fp.pos).abs().max())
+    dq = float((fk.q.cpu() - fp.q).abs().max())
+    line = (f"# phase 6e exp_2's first riser, tick kernel on {card} vs plain loop on the CPU, {T} ticks: "
+            f"pos and q first past {riser.THRESHOLD:g} at tick {first}; at the end |dpos| {dpos:.3e} m, |dq| {dq:.3e} rad, "
+            f"x {float(fk.pos[0]):.4f} on the card, {float(fp.pos[0]):.4f} on the CPU")
+    if not (dpos <= RISER_DPOS and dq <= RISER_DQ and (first is None or first >= RISER_FIRST_TICK)):
+        fail(line + f" (gates: |dpos| <= {RISER_DPOS} m, |dq| <= {RISER_DQ} rad, agree until tick {RISER_FIRST_TICK})")
+    log(line)
+
+    # The bound at B=256: the bytes a launch must move, and its operations.
+    B, T = tables.shape[0], tables.shape[1]
+    # a launch reads each table row and writes each trace row once, reads and
+    # writes the state, and reads n_valid
+    nbytes = 4 * (B * T * (tick_mod.ROW + tick_mod.TRACE_FLOATS) + 2 * B * tick_mod.STATE_FLOATS + B)
+    ops = B * T * tick_ops_per_tick()
+    t_bytes, t_ops = nbytes / peak_bytes * 1e3, ops / peak_flops * 1e3
+    bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    log(f"# phase 6e bound B={B} T={T}: {nbytes / 1e6:.1f} MB ({t_bytes:.4f} ms at {peak_bytes / 1e12:g} TB/s), "
+        f"{ops / 1e9:.3f} GFLOP ({t_ops:.4f} ms at {peak_flops / 1e12:g} TFLOP/s): {bound_ms:.4f} ms by {bound_by}; "
+        f"the kernel takes {out[B]['ms'] / bound_ms:.0f}x that: one thread per episode runs its ticks in sequence "
+        f"(phase 6e done in {time.time() - t0:.1f} s)")
+    return dict(ms=out[B]["ms"], plain_ms=out[B]["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=None, max_abs_err=max_err, ms_b1=out[1]["ms"], plain_ms_b1=out[1]["plain_ms"])
 
 
 def phase_planner(dev, card) -> None:
@@ -287,7 +502,9 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     """Phase 8.  `goal_xy` and `runner_cfg` (a zero-argument factory of
     RunnerConfig) cut the run for a rehearsal on the CPU; main() passes
     neither, so the card walks the exp_1 preset as it is.  Returns the
-    kernel's launches in 8a's replan and 8b's run."""
+    BTD kernel's launches in 8a's replan and 8b's run, and the tick
+    kernel's (playback, hold) launches in 8b's run.  8d, the real-time
+    walk, runs only on the card: the CPU's plain loop is slower than 1 kHz."""
     import dataclasses
     import os
     import tempfile
@@ -339,10 +556,13 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     # 8b: the preset, start to goal
     runner = bundle.runner
     btd_solve.launches = 0
+    _zero_tick_counts()
     t1 = _synced(dev)
     rep = runner.run(verbose=True)
     wall = _synced(dev) - t1
     launches = btd_solve.launches
+    tick_launches = _tick_counts()
+    chunks = len(runner._st["com_errs"])
     want = cfg.solver.max_iters * rep.windows + cfg.escalate_iters * runner.escalations
     plan_s = rep.windows * replan_s
     loops = max(runner._st["window"], 1)
@@ -353,7 +573,8 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
             f"escalations {runner.escalations}, final pos ({rep.final_pos[0]:.4f}, {rep.final_pos[1]:.4f}, "
             f"{rep.final_pos[2]:.4f}), avg_com_err_per_s {rep.avg_com_err_per_s:.2f}, "
             f"btd launches {launches} (= {cfg.solver.max_iters} x {rep.windows} solves"
-            f"{' + escalations' if runner.escalations else ''}); wall {wall:.2f} s on {card} = "
+            f"{' + escalations' if runner.escalations else ''}), tick kernel launches (playback, hold) "
+            f"{tick_launches} for {chunks} executed chunks and 1 warm-up; wall {wall:.2f} s on {card} = "
             f"{wall / loops:.2f} s per window over {loops} windows of the loop, of which replans "
             f"{plan_s:.2f} s in all (8a's {replan_s * 1e3:.1f} ms each) and warm-up + execution the rest: "
             f"{(wall - plan_s) / max(rep.sim_ticks, 1) * 1e3:.3f} ms per tick; time from dispatch to "
@@ -367,7 +588,7 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     if goal_xy is None:
         ok = ok and rep.final_pos[0] > 1.9
     if on_card:
-        ok = ok and launches == want
+        ok = ok and launches == want and tick_launches == (chunks, 1)
     if not ok:
         fail(line)
     log(line)
@@ -393,8 +614,31 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
             f"buffers, cursor, row shifts, host mirror and sim state equal bit for bit after restore: {same}")
     if not (same and first.buffer.data_ptr() != fresh.buffer.data_ptr() and first._st["exec_idx"] > 0):
         fail(line)
-    log(line + f" ({time.time() - t1:.1f} s; phase 8 done in {time.time() - t0:.1f} s)")
-    return {"replan": replan_launches, "runner": launches}
+    log(line + f" ({time.time() - t1:.1f} s)")
+
+    # 8d: qtos_tpu's real-time canary (tests/test_realtime.py), paced at 1 kHz
+    if on_card:
+        from qtos_torch.control.replan import RecedingHorizonRunner
+        from qtos_torch.terrain import make_terrain
+
+        t1 = time.time()
+        rt_cfg = RunnerConfig(realtime=True, max_windows=6)
+        rt_runner = RecedingHorizonRunner(make_terrain(["plane", "plane"], device=dev), (0.8, 0.0), cfg=rt_cfg)
+        _zero_tick_counts()
+        rt = rt_runner.run(verbose=False)
+        line = (f"# phase 8d real-time walk (plane x2 to (0.8, 0), realtime=True, max_windows 6) on {card}: "
+                f"underruns {rt.underruns}, realtime_factor {rt.realtime_factor:.4f}, {rt.sim_ticks} ticks, "
+                f"{rt.windows} windows, statuses {rt.statuses}, reached_goal {rt.reached_goal}, time from dispatch "
+                f"to usable plan per window {[round(t, 3) for t in rt.solve_wall_times]} s, tick kernel launches "
+                f"(playback, hold) {_tick_counts()}")
+        if not (rt.underruns == 0 and 0.99 <= rt.realtime_factor < 1.5 and rt.sim_ticks > 2000):
+            fail(line + " (gates, those of qtos_tpu's tests/test_realtime.py: underruns == 0, "
+                        "0.99 <= realtime_factor < 1.5, sim_ticks > 2000)")
+        log(line + f" ({time.time() - t1:.1f} s)")
+    else:
+        log("# phase 8d real-time walk: on the card only")
+    log(f"# phase 8 done in {time.time() - t0:.1f} s")
+    return {"replan": replan_launches, "runner": launches, "tick_runner": tick_launches}
 
 
 def phase_sharded(dev, card, B=1024, two_rank_batches=(5, 1023)) -> int:
@@ -461,6 +705,7 @@ def main() -> None:
 
     import qtos_torch  # noqa: F401  (sets TF32 off)
     from qtos_torch.ops import btd as btd_mod
+    from qtos_torch.ops import tick as tick_mod
     from qtos_torch.ops.btd import btd_solve
     from qtos_torch.ops.tridiag import block_tridiag_matvec, block_tridiag_solve
     from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve_batch
@@ -486,15 +731,22 @@ def main() -> None:
         f"count {torch.cuda.device_count()}")
 
     # ---- 2. build -------------------------------------------------------
+    # One nvcc for each source, both at once; each prints its ptxas report.
     t0 = time.time()
     report = io.StringIO()
-    with contextlib.redirect_stdout(report):
-        path = btd_mod.build(verbose=True)
+    with contextlib.redirect_stdout(report), concurrent.futures.ThreadPoolExecutor(2) as pool:
+        builds = [pool.submit(mod.build, verbose=True) for mod in (btd_mod, tick_mod)]
+        paths = [b.result() for b in builds]
     report = report.getvalue()
     log(report.rstrip())
-    regs = re.search(r"Used (\d+) registers", report)
-    regs = int(regs.group(1)) if regs else None
-    log(f"# phase 2 build: {path} in {time.time() - t0:.1f} s")
+
+    def registers(kernel: str):
+        m = re.search(r"Compiling entry function '[^']*" + kernel + r"[^']*'.*?Used (\d+) registers", report, re.S)
+        return int(m.group(1)) if m else None
+
+    regs, tick_regs = registers("btd_kernel"), registers("tick_kernel")
+    log(f"# phase 2 build: {', '.join(paths)} in {time.time() - t0:.1f} s; registers per thread: "
+        f"btd_kernel {regs}, tick_kernel {tick_regs}")
 
     # ---- 3. kernel vs plain ----------------------------------------------
     def event_ms(fn, reps):
@@ -700,8 +952,9 @@ def main() -> None:
         fail(line)
     log(line + f" ({time.time() - t0:.1f} s)")
 
-    phase_playback(dev, card, terrain, *played)
-    phase_riser(dev, card)
+    playback_out = phase_playback(dev, card, terrain, *played)
+    window = phase_riser(dev, card)
+    tick_row = phase_tick(dev, card, playback_out, window, PEAK_BYTES_PER_S, PEAK_F32_FLOPS)
     phase_planner(dev, card)
     runner_launches = phase_runner(dev, card)
     sharded_launches = phase_sharded(dev, card)
@@ -721,7 +974,22 @@ def main() -> None:
         max_err=max_err_all,
         **kernel_row,
     )
-    print(json.dumps({"kernels": [row]}), flush=True)
+    scan_launches, hold_launches = runner_launches["tick_runner"]
+    tick_row = dict(
+        name="tick",
+        route="cuda",
+        source="qtos_torch/csrc/tick.cu",
+        replaces="qtos_tpu/control/loop.py:275 (_scan_ticks, the jax.lax.scan of the jitted playback and "
+                 "playback_recorded; stance_warmup's scan at :348); no Pallas kernel: XLA compiles the scan",
+        # the exp_1 walk (phase 8b): one playback launch per executed chunk, one warm-up
+        launches=scan_launches + hold_launches,
+        launches_playback=scan_launches,
+        launches_hold=hold_launches,
+        launches_batched_playback=sum(playback_out["launches"]),
+        registers=tick_regs,
+        **tick_row,
+    )
+    print(json.dumps({"kernels": [row, tick_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

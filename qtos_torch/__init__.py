@@ -3,8 +3,9 @@
 The module layout mirrors `qtos_tpu`: `qtos_torch.solver.solve` is the
 counterpart of `qtos_tpu.solver.solve`, and so on.  Everything is float32.
 The batched block-tridiagonal solve of every Levenberg-Marquardt iteration is
-a hand-written CUDA kernel (`csrc/btd.cu`, wrapped by `ops.btd`); the rest is
-plain PyTorch.
+a hand-written CUDA kernel (`csrc/btd.cu`, wrapped by `ops.btd`), and so is
+the 1 kHz control loop, one launch per played chunk (`csrc/tick.cu`, wrapped
+by `ops.tick`); the rest is plain PyTorch.
 
 Public entry points take ``device=None``, which means CUDA.  Without a card
 they raise unless the caller passes ``device="cpu"`` explicitly.

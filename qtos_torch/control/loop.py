@@ -6,8 +6,13 @@ model, and step the physics.
 
 Every function takes any leading batch shape: a table is ``(..., T, 37)`` and
 is stepped along its T axis, the state's leaves carry the same leading axes.
-The loop over ticks is a Python loop; nothing inside a tick reads a tensor
-back to the host, so the device queue stays ahead of it.
+
+`playback`, `playback_recorded` and `stance_warmup` run on the card as one
+launch of the hand-written tick kernel per call (`qtos_torch.ops.tick`,
+`csrc/tick.cu`), as `qtos_tpu` runs them as one compiled scan.  Their plain
+versions are the Python loops `_scan_ticks` and `_hold_ticks` over `_tick`
+and `sim_step`: the CPU runs them, the tests hold the kernel to them, and the
+diagnostic tools step them explicitly.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import torch
 
 from qtos_torch.models.solo12 import Solo12
 from qtos_torch.ops.rotations import euler_to_rot, rot_to_euler
+from qtos_torch.ops.tick import tick_hold, tick_scan
 from qtos_torch.sim.engine import (
     SimParams,
     SimState,
@@ -293,7 +299,8 @@ def _select(active: torch.Tensor, new, old, lead: int):
 
 
 def _scan_ticks(table, state0, terrain, params, n_valid=None):
-    """Run `_tick` over the table's rows.  Ticks at index >= `n_valid` are
+    """The plain version of the tick kernel's playback: `_tick` over the
+    table's rows, one Python iteration per tick.  Ticks at index >= `n_valid` are
     no-ops (state carried through unchanged): the receding-horizon runner's
     exec chunk is a FIXED slice of the trajectory buffer, but in steady state
     only part of its rows are final; without the mask the tail ticks would
@@ -353,8 +360,9 @@ def playback(
     """Run the control loop over full (..., T, 37) tables.
 
     `n_valid` (default all rows) freezes the sim for ticks at index >=
-    n_valid; see `_scan_ticks`.  Returns (final_state, TrackingMetrics)."""
-    final, traces = _scan_ticks(table, state0, terrain, params, n_valid)
+    n_valid; see `_scan_ticks`.  On the card one launch of the tick kernel.
+    Returns (final_state, TrackingMetrics)."""
+    final, traces = tick_scan(table, state0, terrain, params, n_valid)
     return final, _metrics(traces, table.shape[-2] if n_valid is None else n_valid)
 
 
@@ -364,7 +372,14 @@ def stance_warmup(
     params: ControlParams = ControlParams(),
     n_steps: int = 500,
 ):
-    """Hold the initial joint configuration under PD until contact settles."""
+    """Hold the initial joint configuration under PD until contact settles.
+    On the card one launch of the tick kernel."""
+    return tick_hold(state, terrain, params, n_steps)
+
+
+def _hold_ticks(state: SimState, terrain: Terrain, params: ControlParams, n_steps: int) -> SimState:
+    """The plain version of the tick kernel's hold: one Python iteration per
+    step."""
     q_hold = state.q
     qd_des = torch.zeros_like(q_hold)
     for _ in range(n_steps):
@@ -384,9 +399,10 @@ def playback_recorded(
     SAME `_tick` controller as `playback`, so the recorded CSV is produced by
     exactly the controller whose tracking metrics are reported.
 
-    Returns (final_state, TrackingMetrics, traces dict).
+    Returns (final_state, TrackingMetrics, traces dict).  On the card one
+    launch of the tick kernel.
     """
-    final, traces = _scan_ticks(table, state0, terrain, params)
+    final, traces = tick_scan(table, state0, terrain, params)
     return final, _metrics(traces, table.shape[-2]), traces
 
 

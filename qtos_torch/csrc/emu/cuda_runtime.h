@@ -1,6 +1,7 @@
 // A CPU stand-in for the part of the CUDA runtime and device library that
-// qtos_torch/csrc/btd.cu uses, so that the kernel's own source compiles with
-// a host C++ compiler and runs on the CPU (tests/test_torch_btd_emu.py).
+// qtos_torch/csrc/btd.cu and tick.cu use, so that a kernel's own source
+// compiles with a host C++ compiler and runs on the CPU
+// (tests/test_torch_btd_emu.py, tests/test_torch_tick_emu.py).
 //
 // Each CUDA thread is a std::thread; the blocks of a launch run one after
 // another, all threads of a block at once.  __syncwarp and the shuffles meet
@@ -16,8 +17,12 @@
 // The card has 2 SMs that hold 1 block each, so that small batches already
 // walk the grid more than once.
 //
-// The including file defines EmuKernelSig, the kernel's signature, and the
-// dynamic shared memory `smem4`, before it includes the kernel's source.
+// A launch through the typed cudaLaunchKernel needs nothing more.  For one
+// through the untyped (const void*) launch the including file defines
+// EmuKernelSig, the kernel's signature, before it includes this header; a
+// file that launches only by type defines EMU_TYPED_LAUNCH_ONLY instead.
+// The including file also defines `emu_smem_base`, the dynamic shared
+// memory.
 #pragma once
 
 #include <chrono>
@@ -50,6 +55,7 @@ struct alignas(16) float4 {
 };
 inline float4 make_float4(float a, float b, float c, float d) { return float4{a, b, c, d}; }
 inline int min(int a, int b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
@@ -158,24 +164,18 @@ inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 extern float* emu_smem_base;
 
-template <class F>
-struct EmuArity;
-template <class R, class... A>
-struct EmuArity<R(A...)> {
-  static constexpr size_t value = sizeof...(A);
-};
-
 template <class... A, size_t... I>
 void emu_call(void (*f)(A...), void** args, std::index_sequence<I...>) {
   f(*static_cast<A*>(args[I])...);
 }
 
-inline cudaError_t cudaLaunchKernel(const void* func, dim3 grid, dim3 block, void** args,
-                                    size_t smem, cudaStream_t) {
+// Runs every block of a launch of `f`, one after another, all threads of a
+// block at once.
+template <class... A>
+cudaError_t emu_launch(void (*f)(A...), dim3 grid, dim3 block, void** args, size_t smem) {
   if (smem > kEmuSmemBytes || block.x % 32 != 0) return cudaErrorInvalidConfiguration;
-  auto* f = reinterpret_cast<EmuKernelSig*>(const_cast<void*>(func));
   for (unsigned bx = 0; bx < grid.x; ++bx) {
-    std::memset(emu_smem_base, 0xff, smem);  // NaNs, as uninitialised shared memory may hold
+    if (smem) std::memset(emu_smem_base, 0xff, smem);  // NaNs, as uninitialised shared memory may hold
     std::vector<EmuWarp> warps(block.x / 32);
     std::vector<std::thread> threads;
     for (unsigned t = 0; t < block.x; ++t) {
@@ -185,7 +185,7 @@ inline cudaError_t cudaLaunchKernel(const void* func, dim3 grid, dim3 block, voi
         blockDim = block;
         gridDim = grid;
         emu_warp = &warps[t / 32];
-        emu_call(f, args, std::make_index_sequence<EmuArity<EmuKernelSig>::value>{});
+        emu_call(f, args, std::index_sequence_for<A...>{});
         if (!emu_pipe.open.empty() || !emu_pipe.batches.empty()) {
           std::fprintf(stderr, "cuda_emu: a thread ended with cp.async copies not waited for\n");
           std::abort();
@@ -196,3 +196,18 @@ inline cudaError_t cudaLaunchKernel(const void* func, dim3 grid, dim3 block, voi
   }
   return cudaSuccess;
 }
+
+// The runtime's typed launch: the kernel's own signature.
+template <class... A>
+cudaError_t cudaLaunchKernel(void (*f)(A...), dim3 grid, dim3 block, void** args, size_t smem,
+                             cudaStream_t) {
+  return emu_launch(f, grid, block, args, smem);
+}
+
+#ifndef EMU_TYPED_LAUNCH_ONLY
+// The untyped launch: the including file names the kernel's signature.
+inline cudaError_t cudaLaunchKernel(const void* func, dim3 grid, dim3 block, void** args,
+                                    size_t smem, cudaStream_t) {
+  return emu_launch(reinterpret_cast<EmuKernelSig*>(const_cast<void*>(func)), grid, block, args, smem);
+}
+#endif

@@ -43,6 +43,10 @@ class SimParams:
     base_radius: float = 0.05
 
 
+# Penetration [m] over which the contact's normal damping ramps in.
+CONTACT_DAMP_DEPTH = 0.003
+
+
 @dataclasses.dataclass(frozen=True)
 class SimState:
     pos: torch.Tensor      # (..., 3) base CoM world position
@@ -120,7 +124,7 @@ def contact_forces(params: SimParams, terrain: Terrain, feet_w, feet_vw, anchor)
     h = height_at(terrain, feet_w[..., 0], feet_w[..., 1])
     pen = h - feet_w[..., 2]
     active = pen > 0.0
-    damp_gate = torch.clamp(pen / 0.003, 0.0, 1.0)
+    damp_gate = torch.clamp(pen / CONTACT_DAMP_DEPTH, 0.0, 1.0)
     fn = torch.where(
         active,
         params.contact_kp * pen - params.contact_kd * damp_gate * feet_vw[..., 2],

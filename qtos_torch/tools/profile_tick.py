@@ -1,6 +1,10 @@
-r"""What one tick of the 1 kHz control loop launches on one CUDA card.
+r"""What one tick of the plain 1 kHz control loop launches on one CUDA card.
 
     python3 -m qtos_torch.tools.profile_tick [TICKS]
+
+The loop profiled is the plain version, `control.loop._scan_ticks`, which
+`playback` runs on the CPU; on the card `playback` is one launch of the tick
+kernel (`qtos_torch.ops.tick`), timed by `chip_smoke.py`.
 
 Solves 256 trot windows on flat ground (plane x3, K=41, goals 0.3-0.8 m, three
 LM iterations), samples them to 1 kHz tables, and plays the first TICKS rows
@@ -14,7 +18,8 @@ LM iterations), samples them to 1 kHz tables, and plays the first TICKS rows
     if the profiler reports no device activity);
   - the card's name, power limit and SM clock, before and after the runs.
 
-Times per tick at full length are `chip_smoke.py`'s (phase 6).  It needs a
+Times per tick of the plain loop and the kernel at full length are
+`chip_smoke.py`'s (phase 6e).  It needs a
 card and exits non-zero without one.
 """
 
@@ -28,8 +33,8 @@ from collections import Counter
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from qtos_torch.control import ControlParams, playback, stance_warmup
-from qtos_torch.control.loop import state_from_row
+from qtos_torch.control import ControlParams
+from qtos_torch.control.loop import _hold_ticks, _scan_ticks, state_from_row
 from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve_batch
 from qtos_torch.solver.spec import index_spec
 from qtos_torch.terrain import make_terrain
@@ -88,18 +93,18 @@ def main(argv) -> int:
 
     for B in (1, Bmax):
         tables = all_tables if B > 1 else all_tables[0]
-        s0 = stance_warmup(state_from_row(tables[..., 0, :], terrain, params), terrain, params, 20)
+        s0 = _hold_ticks(state_from_row(tables[..., 0, :], terrain, params), terrain, params, 20)
         if B == 1:
             with _CountOps() as counter:
-                playback(tables[:10], s0, terrain, params)
+                _scan_ticks(tables[:10], s0, terrain, params)
             print(f"aten operations dispatched: {sum(counter.ops.values()) / 10:.1f} per tick (B=1, 10 ticks "
                   f"incl. the trace stacking); most frequent: {counter.ops.most_common(8)}", flush=True)
-        playback(tables[..., :5, :], s0, terrain, params)
-        _, plain = _timed(lambda: playback(tables, s0, terrain, params))
+        _scan_ticks(tables[..., :5, :], s0, terrain, params)
+        _, plain = _timed(lambda: _scan_ticks(tables, s0, terrain, params))
         with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         ) as prof:
-            _, wall = _timed(lambda: playback(tables, s0, terrain, params))
+            _, wall = _timed(lambda: _scan_ticks(tables, s0, terrain, params))
         events = _device_events(prof)
         busy_us = sum(t for _, t in events)
         if not events or busy_us == 0.0:

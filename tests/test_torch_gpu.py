@@ -1,6 +1,7 @@
-"""Tests of qtos_torch that need a CUDA card: the kernel against its plain
-version, the solver through the kernel, and the simulator and control loop
-on the card against the CPU.  They skip without a card.
+"""Tests of qtos_torch that need a CUDA card: the BTD kernel and the tick
+kernel against their plain versions, the solver through the kernel, the
+simulator and control loop on the card against the CPU, and the runner's
+real-time mode.  They skip without a card.
 
 This file imports neither JAX nor qtos_tpu, so it also runs where only the
 port is installed:
@@ -166,7 +167,7 @@ def test_playback_on_card_matches_cpu(cuda):
     from qtos_torch.terrain import make_terrain
 
     terr, tables = _episodes(cuda)
-    tables = tables[:, :100]
+    tables = tables[:, :100].contiguous()       # the tick kernel takes a contiguous table
     out = {}
     for dev in (cuda, torch.device("cpu")):
         terr_d = terr if dev.type == "cuda" else make_terrain(["plane", "plane"], device="cpu")
@@ -180,6 +181,113 @@ def test_playback_on_card_matches_cpu(cuda):
     torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=1e-4)
     torch.testing.assert_close(out["cuda"][2], out["cpu"][2], rtol=0, atol=2e-5)
     torch.testing.assert_close(out["cuda"][3], out["cpu"][3], rtol=1e-3, atol=0)
+
+
+def test_tick_kernel_matches_plain_on_card(cuda):
+    """The tick kernel against the plain loop, both on the card: 4 episodes,
+    700 ticks on flat ground, one launch.  Over the first 500 ticks the gates
+    of chip_smoke.py's phase 6c (1e-4 m, 5e-4 rad, 0.5 %); over all 700 the
+    larger of those and twice what the plain loop on the card and on the CPU
+    differ by on the same inputs: past ~500 ticks any two float32 versions
+    of the loop part (phase 6e, PERF.md)."""
+    from qtos_torch.control import ControlParams
+    from qtos_torch.control.loop import _hold_ticks, _metrics, _scan_ticks, state_from_row
+    from qtos_torch.ops.tick import tick_scan
+    from qtos_torch.solver.spec import map_tensors
+
+    terr, tables = _episodes(cuda)
+    tables = tables[:, :700].contiguous()
+    params = ControlParams()
+    s0 = _hold_ticks(state_from_row(tables[:, 0], terr, params), terr, params, 100)
+    before = tick_scan.launches
+    _, traces_k = tick_scan(tables, s0, terr, params)
+    torch.cuda.synchronize()
+    assert tick_scan.launches == before + 1
+    _, traces_p = _scan_ticks(tables, s0, terr, params)
+    cpu = lambda t: t.cpu()  # noqa: E731
+    _, traces_c = _scan_ticks(tables.cpu(), map_tensors(s0, cpu), map_tensors(terr, cpu), params)
+    assert tick_scan.launches == before + 1
+
+    def spread(a, b, n):
+        a, b = ({k: v[:, :n].cpu() for k, v in x.items()} for x in (a, b))
+        ma, mb = _metrics(a, n), _metrics(b, n)
+        return (float((a["pos"] - b["pos"]).abs().max()), float((a["q"] - b["q"]).abs().max()),
+                float(((ma.avg_com_err_per_s - mb.avg_com_err_per_s).abs() / mb.avg_com_err_per_s).max()))
+
+    gates = (1e-4, 5e-4, 5e-3)
+    early = spread(traces_k, traces_p, 500)
+    assert all(e <= g for e, g in zip(early, gates)), early
+    full, plain_pair = spread(traces_k, traces_p, 700), spread(traces_p, traces_c, 700)
+    assert all(f <= max(g, 2 * p) for f, g, p in zip(full, gates, plain_pair)), (full, plain_pair)
+
+
+def test_tick_kernel_launches_once_per_call(cuda):
+    """`playback` (with an int and a per-episode `n_valid`), `playback_recorded`
+    and `stance_warmup` each launch the kernel exactly once; n_valid = 0
+    leaves an episode in its start state bit for bit."""
+    from qtos_torch.control import ControlParams, playback, stance_warmup
+    from qtos_torch.control.loop import playback_recorded, state_from_row
+    from qtos_torch.ops.tick import tick_hold, tick_scan
+
+    terr, tables = _episodes(cuda)
+    tables = tables[:, :50].contiguous()
+    params = ControlParams()
+    scan0, hold0 = tick_scan.launches, tick_hold.launches
+    s0 = stance_warmup(state_from_row(tables[:, 0], terr, params), terr, params, 30)
+    assert (tick_scan.launches, tick_hold.launches) == (scan0, hold0 + 1)
+    playback(tables, s0, terr, params, n_valid=20)
+    final, _ = playback(tables, s0, terr, params, n_valid=torch.tensor([50, 20, 0, 1], device=cuda))
+    _, _, traces = playback_recorded(tables[0], stance_warmup(_episode0(s0), terr, params, 5), terr, params)
+    torch.cuda.synchronize()
+    assert (tick_scan.launches, tick_hold.launches) == (scan0 + 3, hold0 + 2)
+    assert torch.equal(final.q[2], s0.q[2]) and torch.equal(final.anchor[2], s0.anchor[2])
+    assert tuple(traces["q"].shape) == (50, 12) and bool(torch.isfinite(traces["tau"]).all())
+
+
+def _episode0(state):
+    """Episode 0 of a batched state."""
+    import dataclasses
+
+    return dataclasses.replace(state, **{f.name: getattr(state, f.name)[0].contiguous()
+                                         for f in dataclasses.fields(state)})
+
+
+def test_tick_kernel_rejects_bad_tables(cuda):
+    """A mis-shaped or non-contiguous table raises on the card; nothing falls
+    back to the plain loop."""
+    from qtos_torch.control import ControlParams, playback
+    from qtos_torch.control.loop import state_from_row
+    from qtos_torch.ops.tick import tick_scan
+
+    terr, tables = _episodes(cuda)
+    params = ControlParams()
+    s0 = state_from_row(tables[:, 0], terr, params)
+    before = tick_scan.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        playback(tables[:, ::2], s0, terr, params)
+    with pytest.raises(ValueError, match="T, 37"):
+        playback(tables[..., :36].contiguous(), s0, terr, params)
+    with pytest.raises(TypeError, match="float32"):
+        playback(tables.double(), s0, terr, params)
+    with pytest.raises(ValueError, match="state.pos"):
+        playback(tables[:2].contiguous(), s0, terr, params)
+    assert tick_scan.launches == before
+
+
+def test_realtime_pacing_no_underruns_on_card(tmp_path, monkeypatch, cuda):
+    """`qtos_tpu`'s real-time canary (tests/test_realtime.py) on the card: the
+    same config, the same three asserts."""
+    from qtos_torch.control.replan import RecedingHorizonRunner, RunnerConfig
+    from qtos_torch.terrain import make_terrain
+
+    monkeypatch.chdir(tmp_path)
+    terrain = make_terrain(["plane", "plane"])
+    cfg = RunnerConfig(realtime=True, max_windows=6)
+    runner = RecedingHorizonRunner(terrain, (0.8, 0.0), cfg=cfg)
+    rep = runner.run(verbose=False)
+    assert rep.underruns == 0
+    assert 0.99 <= rep.realtime_factor < 1.5, rep.realtime_factor
+    assert rep.sim_ticks > 2000
 
 
 def test_runner_two_windows_on_card(cuda, tmp_path, monkeypatch):

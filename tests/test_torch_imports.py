@@ -32,6 +32,7 @@ PORT_MODULES = [
     "qtos_torch.ops.btd",
     "qtos_torch.ops.rotations",
     "qtos_torch.ops.splines",
+    "qtos_torch.ops.tick",
     "qtos_torch.ops.tridiag",
     "qtos_torch.parallel.distributed",
     "qtos_torch.parallel.mesh",
@@ -52,6 +53,7 @@ PORT_MODULES = [
     "qtos_torch.planner.astar",
     "qtos_torch.planner.global_planner",
     "qtos_torch.planner.feasibility",
+    "qtos_torch.tools.check_tick",
     "qtos_torch.tools.compare_btd",
     "qtos_torch.tools.crossover",
     "qtos_torch.tools.profile_solve",
