@@ -10,8 +10,9 @@ results.
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build csrc/btd.cu and csrc/tick.cu with nvcc for sm_90a, one nvcc each,
-     both at once (ptxas report: registers);
+  2. build csrc/btd.cu, csrc/tick.cu and the tick's latency probe
+     (tools/op_cycles.cu) with nvcc for sm_90a, one nvcc each, all at once
+     (ptxas report: registers);
   3. BTD kernel vs plain version on random SPD systems (the shapes of the
      tests and those of the driven paths: B=1, K=33; B=20, K=25; B=4, B=64,
      B=1024 and B=8192, K=41; B=3 and B=512, K=13; n=36) and on a Levenberg-Marquardt system of the main path;
@@ -35,7 +36,11 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (e) the tick kernel against its plain version: B=1 and B=256 over 6b's
      2,501-tick tables, both on the card, with ms per tick of each; the
      kernel on the card against the plain loop on the CPU over 6d's window;
-     the kernel's bound;
+     the kernel's device launches per playback, playback_recorded and
+     stance_warmup call, counted in a torch.profiler trace of each (in a
+     process of its own: `python3 chip_smoke.py --device-launches`); the
+     kernel's bound, and its design's floor from the latencies of the
+     operations on the chain's loop-carried cycles, probed on the card;
   7. planner: the solver-probed feasibility map of the pillar tile (one
      solve_batch over every candidate hop, K=25), the kernel's launches and
      the failed hops, then A* and the global planner over that map;
@@ -61,6 +66,7 @@ import contextlib
 import io
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -103,6 +109,46 @@ def _zero_tick_counts():
     from qtos_torch.ops.tick import tick_hold, tick_scan
 
     tick_scan.launches = tick_hold.launches = 0
+
+
+def count_device_launches() -> None:
+    """`python3 chip_smoke.py --device-launches`, which phase 6e runs in a
+    process of its own: one call each of `playback`, `playback_recorded` and
+    `stance_warmup` on 8 solved trot windows (plane x3, K=41), each under
+    `torch.profiler`, and one JSON line with the device launches of
+    `tick_kernel` in each call's trace and the trace's device events.  (In
+    the smoke's own process, after phase 4's profile, later traces held no
+    device events at all; a fresh process records them.)"""
+    import torch
+
+    from qtos_torch.control.loop import gait_control_params, playback, playback_recorded, stance_warmup, state_from_row
+    from qtos_torch.ops.tick import tick_hold, tick_scan
+    from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve_batch
+    from qtos_torch.terrain import make_terrain
+
+    dev = torch.device("cuda")
+    terrain = make_terrain(["plane"] * 3)
+    specs = default_spec(terrain, goal_xy=(torch.linspace(0.3, 0.8, 8, device=dev), 0.0), K=41)
+    tables = sample_trajectory(solve_batch(specs, terrain, SolverConfig(max_iters=3, rescue_iters=12)).x, specs)[0]
+    tables = tables.contiguous()
+    params = gait_control_params("trot")
+    s0 = stance_warmup(state_from_row(tables[:, 0], terrain, params), terrain, params, 100)
+    playback(tables, s0, terrain, params)                 # the library is loaded and warm
+    calls = dict(playback=lambda: playback(tables, s0, terrain, params),
+                 playback_recorded=lambda: playback_recorded(tables, s0, terrain, params),
+                 stance_warmup=lambda: stance_warmup(s0, terrain, params, 100))
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    for name, fn in calls.items():
+        tick_scan.launches = tick_hold.launches = 0
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=activities) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        out[name] = dict(device=sum("tick_kernel" in n for n in names), events=len(names),
+                         wrapper=tick_scan.launches + tick_hold.launches)
+    print(json.dumps(out), flush=True)
 
 
 def _tick_counts() -> tuple:
@@ -266,6 +312,12 @@ def phase_riser(dev, card, ticks=None) -> tuple:
 FLAT_GATES = (1e-4, 5e-4, 0.005)
 COMPARE_TICKS = 500
 
+# The one-thread-per-episode tick kernel (before the table passes and the
+# legs on lanes), as recorded on an H100 at 700 W: us per tick at B=1 and
+# B=256 over the smoke runs, registers and spill stores.
+TICK_BEFORE = "45.2-45.6 / 47.2-49.0 us per tick at B=1 / B=256, 255 registers, 132 B spill stores"
+
+
 def tick_ops_per_tick() -> int:
     """Floating-point results of one plain tick at B=1 on the CPU: the output
     elements of every aten operation `_tick` dispatches that is not a view
@@ -338,7 +390,7 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
     from qtos_torch.ops import tick as tick_mod
     from qtos_torch.ops.tick import tick_scan
     from qtos_torch.solver.spec import map_tensors
-    from qtos_torch.tools import riser
+    from qtos_torch.tools import riser, tick_floor
 
     t0 = time.time()
     params = gait_control_params("trot")
@@ -388,13 +440,35 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
                 f"{full_k[1]:.3e} rad, {100 * full_k[2]:.4f} %, where the plain loop on the card and on the CPU are "
                 f"{full_pp[0]:.3e} m, {full_pp[1]:.3e} rad, {100 * full_pp[2]:.4f} % apart (gates: the larger of 6c's and "
                 f"twice that); per episode the median largest |dpos| {part_k[0]:.3e} m and the earliest tick past "
-                f"1e-6 {part_k[1]} (the plain loops: {part_pp[0]:.3e} m, tick {part_pp[1]}); kernel {ms:.3f} ms per call (CUDA events, 3 calls) = {ms / T * 1e3:.3f} us per tick "
-                f"({kernel_s * 1e3:.3f} ms host clock, first call), plain loop {plain_s * 1e3:.1f} ms = "
+                f"1e-6 {part_k[1]} (the plain loops: {part_pp[0]:.3e} m, tick {part_pp[1]}); kernel {ms:.3f} ms per "
+                f"call (CUDA events, 3 calls) = {ms / T * 1e3:.3f} us per tick ({kernel_s * 1e3:.3f} ms host clock, "
+                f"first call; before the redesign {TICK_BEFORE}), plain loop {plain_s * 1e3:.1f} ms = "
                 f"{plain_s / T * 1e3:.3f} ms per tick, on {card}")
         if not (all(e <= g for e, g in zip(early, FLAT_GATES)) and all(f <= g for f, g in zip(full_k, allowed))):
             fail(line)
         log(line)
         out[B] = dict(ms=ms, plain_ms=plain_s * 1e3, T=T)
+
+    # Device launches per call of each entry point, from a profiler trace
+    # of one call each (in a process of its own: `count_device_launches`):
+    # the wrapper's count says how often it launched, the trace what the
+    # card ran.
+    device_launches = None
+    if dev.type == "cuda":
+        t1 = time.time()
+        child = subprocess.run([sys.executable, os.path.abspath(__file__), "--device-launches"],
+                               capture_output=True, text=True, timeout=600)
+        if child.returncode != 0:
+            fail(f"phase 6e: the device-launch count failed:\n{child.stderr[-3000:]}")
+        counted = json.loads(child.stdout.strip().splitlines()[-1])
+        line = (f"# phase 6e device launches of tick_kernel per call (torch.profiler trace of one call each, B=8, "
+                f"a process of its own, {time.time() - t1:.1f} s): "
+                + ", ".join(f"{k} {v['device']} (wrapper {v['wrapper']}, {v['events']} device events)"
+                            for k, v in counted.items()))
+        if any(v["device"] != 1 or v["wrapper"] != 1 for v in counted.values()):
+            fail(line)
+        log(line)
+        device_launches = {k: v["device"] for k, v in counted.items()}
 
     # The kernel on the card against the plain loop on the CPU over 6d's window.
     terrain, table, s_cpu = riser_window
@@ -423,12 +497,27 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
     ops = B * T * tick_ops_per_tick()
     t_bytes, t_ops = nbytes / peak_bytes * 1e3, ops / peak_flops * 1e3
     bound_ms, bound_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+    # This design's floor: T times the largest mean of the chain's
+    # loop-carried cycles at the probed latencies (tools/tick_floor.py).
+    floor_ms = floor_cycles = cycle = None
+    if dev.type == "cuda":
+        cycles = tick_floor.op_cycles(tick_floor.load_probe(tick_floor.build_probe()))
+        clock = tick_floor.sm_clock_mhz()
+        floor_ms, floor_cycles, cycle = tick_floor.design_floor(cycles, T, clock)
+        log(f"# phase 6e dependent cycles per operation (probe, {clock:g} MHz): "
+            + ", ".join(f"{k} {v:.1f}" for k, v in cycles.items())
+            + f"; the largest mean of a loop-carried cycle, {cycle!r}, {floor_cycles:.0f} cycles per tick: the "
+            f"design's floor {floor_ms:.4f} ms per {T}-tick call")
     log(f"# phase 6e bound B={B} T={T}: {nbytes / 1e6:.1f} MB ({t_bytes:.4f} ms at {peak_bytes / 1e12:g} TB/s), "
         f"{ops / 1e9:.3f} GFLOP ({t_ops:.4f} ms at {peak_flops / 1e12:g} TFLOP/s): {bound_ms:.4f} ms by {bound_by}; "
-        f"the kernel takes {out[B]['ms'] / bound_ms:.0f}x that: one thread per episode runs its ticks in sequence "
-        f"(phase 6e done in {time.time() - t0:.1f} s)")
+        f"the kernel takes {out[B]['ms'] / bound_ms:.0f}x that"
+        + (f" and {out[B]['ms'] / floor_ms:.2f}x its design's floor: the ticks of an episode depend on each other"
+           if floor_ms else "") + f" (phase 6e done in {time.time() - t0:.1f} s)")
     return dict(ms=out[B]["ms"], plain_ms=out[B]["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=None, max_abs_err=max_err, ms_b1=out[1]["ms"], plain_ms_b1=out[1]["plain_ms"])
+                library_ms=None, max_abs_err=max_err, ms_b1=out[1]["ms"], plain_ms_b1=out[1]["plain_ms"],
+                floor_ms=floor_ms, floor_cycles_per_tick=floor_cycles, floor_cycle=cycle,
+                device_launches_per_call=None if device_launches is None else device_launches["playback"],
+                device_launches_per_hold=None if device_launches is None else device_launches["stance_warmup"])
 
 
 def phase_planner(dev, card) -> None:
@@ -713,7 +802,7 @@ def main() -> None:
     from qtos_torch.solver.spec import index_spec
     from qtos_torch.solver.transcription import initial_guess, knot_aux
     from qtos_torch.terrain import make_terrain
-    from qtos_torch.tools import profile_solve
+    from qtos_torch.tools import profile_solve, tick_floor
 
     dev = torch.device("cuda")
 
@@ -731,22 +820,24 @@ def main() -> None:
         f"count {torch.cuda.device_count()}")
 
     # ---- 2. build -------------------------------------------------------
-    # One nvcc for each source, both at once; each prints its ptxas report.
+    # One nvcc for each source, all at once; each prints its ptxas report.
     t0 = time.time()
     report = io.StringIO()
-    with contextlib.redirect_stdout(report), concurrent.futures.ThreadPoolExecutor(2) as pool:
-        builds = [pool.submit(mod.build, verbose=True) for mod in (btd_mod, tick_mod)]
+    with contextlib.redirect_stdout(report), concurrent.futures.ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(fn, verbose=True) for fn in (btd_mod.build, tick_mod.build, tick_floor.build_probe)]
         paths = [b.result() for b in builds]
     report = report.getvalue()
     log(report.rstrip())
 
     def registers(kernel: str):
-        m = re.search(r"Compiling entry function '[^']*" + kernel + r"[^']*'.*?Used (\d+) registers", report, re.S)
-        return int(m.group(1)) if m else None
+        m = re.search(r"Compiling entry function '[^']*" + kernel + r"[^']*'.*?(\d+) bytes spill stores.*?"
+                      r"Used (\d+) registers", report, re.S)
+        return (int(m.group(2)), int(m.group(1))) if m else (None, None)
 
-    regs, tick_regs = registers("btd_kernel"), registers("tick_kernel")
+    (regs, _), (tick_regs, tick_spills) = registers("btd_kernel"), registers("tick_kernel")
     log(f"# phase 2 build: {', '.join(paths)} in {time.time() - t0:.1f} s; registers per thread: "
-        f"btd_kernel {regs}, tick_kernel {tick_regs}")
+        f"btd_kernel {regs}, tick_kernel {tick_regs} with {tick_spills} B spill stores (before the tick "
+        f"kernel's redesign: {TICK_BEFORE})")
 
     # ---- 3. kernel vs plain ----------------------------------------------
     def event_ms(fn, reps):
@@ -987,6 +1078,7 @@ def main() -> None:
         launches_hold=hold_launches,
         launches_batched_playback=sum(playback_out["launches"]),
         registers=tick_regs,
+        spill_stores_bytes=tick_spills,
         **tick_row,
     )
     print(json.dumps({"kernels": [row, tick_row]}), flush=True)
@@ -995,4 +1087,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:] == ["--device-launches"]:
+        count_device_launches()
+    else:
+        main()

@@ -5,8 +5,9 @@
 //
 // Each CUDA thread is a std::thread; the blocks of a launch run one after
 // another, all threads of a block at once.  __syncwarp and the shuffles meet
-// at a barrier of the warp's 32 threads, so a __syncwarp that not every lane
-// reaches hangs (and is reported after a timeout) instead of passing.
+// at a barrier of the warp's 32 threads, and __syncthreads at one of all the
+// block's threads, so a barrier that not every thread reaches hangs (and is
+// reported after a timeout) instead of passing.
 //
 // A cp.async copy fills its destination with NaN when it is issued and
 // copies only when __pipeline_wait_prior completes its batch, so a read of
@@ -68,31 +69,41 @@ enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
-// The 32 threads of one warp.
-struct EmuWarp {
+// A barrier of `size` threads that aborts when one of them does not come.
+struct EmuBarrier {
   std::mutex m;
   std::condition_variable cv;
-  int count = 0, gen = 0;
-  float slot[32];
+  int size = 32, count = 0, gen = 0;
 
-  void wait() {
+  void wait(int seconds, const char* what) {
     std::unique_lock<std::mutex> lk(m);
     const int g = gen;
-    if (++count == 32) {
+    if (++count == size) {
       count = 0;
       ++gen;
       cv.notify_all();
       return;
     }
-    if (!cv.wait_for(lk, std::chrono::seconds(60), [&] { return gen != g; })) {
-      std::fprintf(stderr, "cuda_emu: a warp barrier timed out (a divergent __syncwarp?)\n");
+    if (!cv.wait_for(lk, std::chrono::seconds(seconds), [&] { return gen != g; })) {
+      std::fprintf(stderr, "cuda_emu: %s timed out\n", what);
       std::abort();
     }
   }
 };
+
+// The 32 threads of one warp.
+struct EmuWarp : EmuBarrier {
+  float slot[32];
+
+  void wait() { EmuBarrier::wait(60, "a warp barrier (a divergent __syncwarp or shuffle?)"); }
+};
 inline thread_local EmuWarp* emu_warp = nullptr;
+inline thread_local EmuBarrier* emu_block = nullptr;
 
 inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp->wait(); }
+// The block's barrier waits longer: one warp may run a whole loop of
+// shuffles while the others wait there.
+inline void __syncthreads() { emu_block->wait(600, "a block barrier (a thread that missed __syncthreads?)"); }
 
 inline float __shfl_sync(unsigned, float v, int src) {
   emu_warp->wait();
@@ -137,6 +148,10 @@ inline void __pipeline_wait_prior(size_t prior) {
 }
 
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline long long clock64() {  // nanoseconds where the card counts cycles
+  return std::chrono::duration_cast<std::chrono::nanoseconds>(
+             std::chrono::steady_clock::now().time_since_epoch()).count();
+}
 inline float __fdividef(float a, float b) { return a / b; }
 
 constexpr size_t kEmuSmemBytes = 232448;  // the most a block may ask for on an H100
@@ -177,6 +192,8 @@ cudaError_t emu_launch(void (*f)(A...), dim3 grid, dim3 block, void** args, size
   for (unsigned bx = 0; bx < grid.x; ++bx) {
     if (smem) std::memset(emu_smem_base, 0xff, smem);  // NaNs, as uninitialised shared memory may hold
     std::vector<EmuWarp> warps(block.x / 32);
+    EmuBarrier block_barrier;
+    block_barrier.size = (int)block.x;
     std::vector<std::thread> threads;
     for (unsigned t = 0; t < block.x; ++t) {
       threads.emplace_back([&, t] {
@@ -185,6 +202,7 @@ cudaError_t emu_launch(void (*f)(A...), dim3 grid, dim3 block, void** args, size
         blockDim = block;
         gridDim = grid;
         emu_warp = &warps[t / 32];
+        emu_block = &block_barrier;
         emu_call(f, args, std::index_sequence_for<A...>{});
         if (!emu_pipe.open.empty() || !emu_pipe.batches.empty()) {
           std::fprintf(stderr, "cuda_emu: a thread ended with cp.async copies not waited for\n");

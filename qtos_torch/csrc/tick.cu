@@ -6,27 +6,46 @@
 // The port's plain version is the eager tick of qtos_torch/control/loop.py
 // (`_tick`, `_scan_ticks`, `_hold_ticks`), about 650 small kernels per tick.
 //
-// Design.  One thread per episode; the carry (the sim state, the previous
-// planned joints and the three controller filters, ~90 floats) stays in
-// registers across all T ticks, and the next table row is loaded while the
-// current tick computes.  What bounds it on an H100 is the dependent chain of
-// one tick (~100 transcendental calls and ~2k other operations in sequence),
-// not bytes: a launch moves B * T * (37 + 56) floats, the row reads and the
-// trace writes.
+// What bounds it on an H100 is the dependent chain of the ticks, not bytes:
+// a launch moves B * T * (37 + 56) floats, the rows and the traces, and each
+// tick needs the one before it.  So the design keeps on that chain only what
+// the next tick needs, and spreads it over four lanes.  A block of 256
+// threads holds 8 episodes and runs three phases, a block barrier between
+// them:
 //
-// Arithmetic.  Every sum and product is taken in the plain version's order on
+//   1. Table pass, every thread, in parallel over (episode, tick): the
+//      planned feet in the planned base frame and their IK for every row,
+//      then the desired joint velocities (q_plan[t] - q_prev) / dt with
+//      q_prev = q_plan[min(t, n_valid) - 1] (q_plan[0] when that is 0), into
+//      the scratch.  These read only the table and n_valid.
+//   2. Chain, warp 0: four lanes per episode, leg l on lane l.  Each lane
+//      computes its leg (FK and Jacobian, the controller's IK, PD with the
+//      force feed-forward, contact with stiction, the joint update) and all
+//      four compute the base (rotation, Euler angles, filters, wrench,
+//      inertia, base contact, Euler step) alike from the legs' forces taken
+//      by shuffles; the carry stays in registers.  Each tick writes pos, q,
+//      qd and tau of the trace row and the new quaternion into the scratch.
+//      Groups past B run masked to the end: every lane reaches every
+//      shuffle.
+//   3. Trace pass, every thread, in parallel over (episode, tick): com_err,
+//      ee_err, the world feet and the Euler angles of the trace row from the
+//      state the chain recorded.
+//
+// Arithmetic.  Every value is the expression of the one-thread-per-episode
+// version, which took every sum and product in the plain version's order on
 // the CPU: 3x3 products and row-times-matrix left to right from the first
-// term, the four feet summed in order, cross products as torch.linalg.cross,
-// a tensor divided by a Python number by a true division.  Built with
-// --fmad=false (nvcc) or -ffp-contract=off (g++), and without fast math, so
-// each product rounds on its own as it does there.  Constants come from
-// Python (`qtos_torch/ops/tick.py`) in the layout `tick_param_layout()`
-// names; nothing here repeats a number of the model.
+// term, the four feet summed in order 0..3, cross products as
+// torch.linalg.cross, a tensor divided by a Python number by a true division.
+// Built with --fmad=false (nvcc) or -ffp-contract=off (g++), and without fast
+// math, so each product rounds on its own as it does there; only the thread
+// that computes a value and the time it is computed have moved.  Constants
+// come from Python (`qtos_torch/ops/tick.py`) in the layout
+// `tick_param_layout()` names; nothing here repeats a number of the model.
 //
 // Modes.  0: playback of a (B, T, 37) table with per-episode `n_valid` (at
 // t >= n_valid the carry is frozen and the trace row is still written from
-// it); 1: stance hold, T steps of PD to the initial joints with zero desired
-// velocity, no controller and no traces.
+// one tick past it); 1: stance hold, T steps of PD to the initial joints with
+// zero desired velocity, no controller and no traces: phase 2 alone.
 
 #include <cuda_runtime.h>
 
@@ -49,10 +68,18 @@
 
 namespace {
 
-constexpr int kRow = 37;      // columns of a trajectory row
-constexpr int kState = 45;    // pos 3, quat 4, v 3, w 3, q 12, qd 12, anchor 8
-constexpr int kTrace = 56;    // com_err, ee_err, pos 3, feet 12, q 12, qd 12, tau 12, eul 3
-constexpr int kThreads = 32;  // episodes per block
+constexpr int kRow = 37;       // columns of a trajectory row
+constexpr int kState = 45;     // pos 3, quat 4, v 3, w 3, q 12, qd 12, anchor 8
+constexpr int kTrace = 56;     // com_err, ee_err, pos 3, feet 12, q 12, qd 12, tau 12, eul 3
+constexpr int kEpisodes = 8;   // episodes per block, four lanes each: one warp's chain
+constexpr int kThreads = 256;  // threads per block, all of which run phases 1 and 3
+// The scratch row of one (episode, tick): per leg l at 9 l the planned foot
+// in the planned base frame (3), its IK (3) and the desired joint velocities
+// (3); at kQuat the quaternion after the tick.
+constexpr int kPlanLeg = 9;
+constexpr int kQuat = 36;
+constexpr int kScratch = 40;
+constexpr unsigned kFullMask = 0xffffffffu;
 
 struct TickParams {
 #define TICK_SCALAR_FIELD(n) float n;
@@ -64,16 +91,6 @@ struct TickParams {
   int frame;          // 0 live, 1 hybrid, 2 plan
   int use_force_ff;
   int hf_rows, hf_cols;
-};
-
-struct State {
-  float pos[3], quat[4], v[3], w[3], q[12], qd[12], anchor[4][2];
-};
-
-// Foot kinematics of one state: world feet, their world velocities, the
-// world lever arms, the leg Jacobians and the base rotation.
-struct Kin {
-  float feet_w[4][3], feet_vw[4][3], arm_w[4][3], J[4][3][3], R[3][3];
 };
 
 DEV float clampf(float x, float lo, float hi) {  // torch.clamp: NaN passes through
@@ -148,14 +165,36 @@ DEV void quat_integrate(float q[4], const float om[3], float dt) {
 
 // ---- models/solo12.py --------------------------------------------------------
 
-// Foot of leg l relative to its hip (x, yb, zb) and, if J is given, its
-// Jacobian d(foot)/d(q0, q1, q2).
-DEV void leg_fk(const TickParams& p, const float* ql, int l, float f[3], float (*J)[3]) {
+// The constants of one leg, picked once per lane (a register array indexed by
+// the lane's leg would live in local memory).
+struct Leg {
+  float hip[3], gain[3], lateral, knee;
+};
+
+DEV Leg leg_params(const TickParams& p, int l) {
+  Leg g;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    if (l == k) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        g.hip[j] = p.hips[3 * k + j];
+        g.gain[j] = p.gain[3 * k + j];
+      }
+      g.lateral = p.lateral[k];
+      g.knee = p.knee[k];
+    }
+  }
+  return g;
+}
+
+// Foot of a leg relative to its hip (x, yb, zb) and, if J is given, its
+// Jacobian d(foot)/d(q0, q1, q2); y is the leg's lateral offset.
+DEV void leg_fk(const TickParams& p, const float* ql, float y, float f[3], float (*J)[3]) {
   const float s1 = sinf(ql[1]), s12 = sinf(ql[1] + ql[2]);
   const float c1 = cosf(ql[1]), c12 = cosf(ql[1] + ql[2]);
   const float x = -p.l_up * s1 - p.l_low * s12;
   const float z = -p.l_up * c1 - p.l_low * c12;
-  const float y = p.lateral[l];
   const float c0 = cosf(ql[0]), s0 = sinf(ql[0]);
   f[0] = x;
   f[1] = c0 * y - s0 * z;
@@ -171,42 +210,27 @@ DEV void leg_fk(const TickParams& p, const float* ql, int l, float f[3], float (
   }
 }
 
-// Feet in the base frame (4, 3), with the hip offsets.
-DEV void fk(const TickParams& p, const float q[12], float feet[4][3], float (*J)[3][3]) {
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    float f[3];
-    leg_fk(p, q + 3 * l, l, f, J ? J[l] : nullptr);
-#pragma unroll
-    for (int j = 0; j < 3; ++j) feet[l][j] = p.hips[3 * l + j] + f[j];
-  }
-}
-
-// Closed-form IK of the four legs from base-frame feet; `ee_shift` is added
-// to z when it is not 0.  Clips unreachable targets to the workspace.
-DEV void ik(const TickParams& p, const float feet[4][3], float q[12]) {
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    const float fz = p.ee_shift != 0.0f ? feet[l][2] + p.ee_shift : feet[l][2];
-    const float vx = feet[l][0] - p.hips[3 * l], vy = feet[l][1] - p.hips[3 * l + 1];
-    const float vz = fz - p.hips[3 * l + 2];
-    const float d = p.lateral[l];
-    const float r2 = vy * vy + vz * vz;
-    const float zeta = sqrtf(clamp_min(r2 - d * d, 1e-10f));
-    float q0 = atan2f(vz, vy) - atan2f(-zeta, d);
-    q0 = atan2f(sinf(q0), cosf(q0));
-    const float px = vx, pz = -zeta;
-    float c2 = (px * px + pz * pz - p.ik_l1l1 - p.ik_l2l2) / p.ik_2l1l2;
-    c2 = clampf(c2, -1.0f, 1.0f);
-    const float q2 = p.knee[l] * acosf(c2);
-    const float k1 = p.l_up + p.l_low * cosf(q2);
-    const float k2 = p.l_low * sinf(q2);
-    float q1 = atan2f(-px, -pz) - atan2f(k2, k1);
-    q1 = atan2f(sinf(q1), cosf(q1));
-    q[3 * l] = q0;
-    q[3 * l + 1] = q1;
-    q[3 * l + 2] = q2;
-  }
+// Closed-form IK of one leg from its base-frame foot; `ee_shift` is added to
+// z when it is not 0.  Clips an unreachable target to the workspace.
+DEV void leg_ik(const TickParams& p, const float foot[3], const float hip[3], float d, float knee, float q[3]) {
+  const float fz = p.ee_shift != 0.0f ? foot[2] + p.ee_shift : foot[2];
+  const float vx = foot[0] - hip[0], vy = foot[1] - hip[1];
+  const float vz = fz - hip[2];
+  const float r2 = vy * vy + vz * vz;
+  const float zeta = sqrtf(clamp_min(r2 - d * d, 1e-10f));
+  float q0 = atan2f(vz, vy) - atan2f(-zeta, d);
+  q0 = atan2f(sinf(q0), cosf(q0));
+  const float px = vx, pz = -zeta;
+  float c2 = (px * px + pz * pz - p.ik_l1l1 - p.ik_l2l2) / p.ik_2l1l2;
+  c2 = clampf(c2, -1.0f, 1.0f);
+  const float q2 = knee * acosf(c2);
+  const float k1 = p.l_up + p.l_low * cosf(q2);
+  const float k2 = p.l_low * sinf(q2);
+  float q1 = atan2f(-px, -pz) - atan2f(k2, k1);
+  q1 = atan2f(sinf(q1), cosf(q1));
+  q[0] = q0;
+  q[1] = q1;
+  q[2] = q2;
 }
 
 // ---- terrain/heightfield.py ----------------------------------------------------
@@ -225,59 +249,74 @@ DEV float height_at(const TickParams& p, const float* __restrict__ h, float x, f
          r1[0] * (1.0f - fx) * fy + r1[1] * fx * fy;
 }
 
-// ---- sim/engine.py, sim/motor.py ----------------------------------------------
+// ---- sim/engine.py, sim/motor.py: one leg per lane ------------------------------
 
-DEV void foot_kinematics(const TickParams& p, const State& s, Kin& k) {
-  quat_to_rot(s.quat, k.R);
-  float feet_b[4][3];
-  fk(p, s.q, feet_b, k.J);
+// The base's carry, the same on the four lanes of an episode, and the carry
+// of the lane's leg.
+struct Base {
+  float pos[3], quat[4], v[3], w[3];
+};
+struct LegState {
+  float q[3], qd[3], anchor[2];
+};
+
+// Kinematics of the lane's leg in a state: its Jacobian, the world lever
+// arm, the world foot and its world velocity.
+struct LegKin {
+  float J[3][3], arm_w[3], feet_w[3], feet_vw[3];
+};
+
+DEV void leg_kinematics(const TickParams& p, const Leg& g, const Base& s, const float R[3][3],
+                        const LegState& ls, LegKin& k) {
+  float f[3], feet_b[3], vj[3];
+  leg_fk(p, ls.q, g.lateral, f, k.J);
 #pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    float vj[3];
+  for (int j = 0; j < 3; ++j) feet_b[j] = g.hip[j] + f[j];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      k.arm_w[l][i] = feet_b[l][0] * k.R[i][0] + feet_b[l][1] * k.R[i][1] + feet_b[l][2] * k.R[i][2];
-      vj[i] = k.J[l][i][0] * s.qd[3 * l] + k.J[l][i][1] * s.qd[3 * l + 1] +
-              k.J[l][i][2] * s.qd[3 * l + 2];
-    }
-    float c[3];
-    cross3(s.w, k.arm_w[l], c);
+  for (int i = 0; i < 3; ++i) {
+    k.arm_w[i] = feet_b[0] * R[i][0] + feet_b[1] * R[i][1] + feet_b[2] * R[i][2];
+    vj[i] = k.J[i][0] * ls.qd[0] + k.J[i][1] * ls.qd[1] + k.J[i][2] * ls.qd[2];
+  }
+  float c[3];
+  cross3(s.w, k.arm_w, c);
 #pragma unroll
-    for (int i = 0; i < 3; ++i) {
-      k.feet_w[l][i] = s.pos[i] + k.arm_w[l][i];
-      k.feet_vw[l][i] = s.v[i] + c[i] + (vj[0] * k.R[i][0] + vj[1] * k.R[i][1] + vj[2] * k.R[i][2]);
-    }
+  for (int i = 0; i < 3; ++i) {
+    k.feet_w[i] = s.pos[i] + k.arm_w[i];
+    k.feet_vw[i] = s.v[i] + c[i] + (vj[0] * R[i][0] + vj[1] * R[i][1] + vj[2] * R[i][2]);
   }
 }
 
-DEV void pd_torque(const TickParams& p, const float q_des[12], const float* qd_des, const State& s,
-                   const float* tau_ff, float tau[12]) {
+DEV void pd_torque(const TickParams& p, const Leg& g, const float q_des[3], const float* qd_des,
+                   const LegState& ls, const float* tau_ff, float tau[3]) {
 #pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    const float dqd = qd_des ? qd_des[j] - s.qd[j] : 0.0f - s.qd[j];
-    float t = p.kp * p.gain[j] * (q_des[j] - s.q[j]) + p.kd * p.gain[j] * dqd;
+  for (int j = 0; j < 3; ++j) {
+    const float dqd = qd_des ? qd_des[j] - ls.qd[j] : 0.0f - ls.qd[j];
+    float t = p.kp * g.gain[j] * (q_des[j] - ls.q[j]) + p.kd * g.gain[j] * dqd;
     if (tau_ff) t = t + tau_ff[j];
     tau[j] = clampf(t, -p.t_max, p.t_max);
   }
 }
 
-// One semi-implicit Euler step of `s` under `tau`, given its kinematics.
-DEV void step_from_kinematics(const TickParams& p, const float* __restrict__ hf, const State& s,
-                              const float tau[12], const Kin& k, State& n) {
-  // Penalty contact with stiction at each foot.
-  float fc[4][3];
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    const float h = height_at(p, hf, k.feet_w[l][0], k.feet_w[l][1]);
-    const float pen = h - k.feet_w[l][2];
+// One semi-implicit Euler step of the episode under the lane's joint torques
+// `tau`, given the lane's leg kinematics and the base rotation R: the
+// contact of the lane's foot; the wrench of the four feet, taken from the
+// group's lanes by shuffles (`lane0` is the group's first lane) and summed in
+// leg order; the base's step, the same on every lane; the lane's joints.
+DEV void step(const TickParams& p, const float* __restrict__ hf, int lane0, const Base& s, const LegState& ls,
+              const float R[3][3], const LegKin& k, const float tau[3], Base& n, LegState& nl) {
+  // Penalty contact with stiction at the lane's foot.
+  float fc[3];
+  {
+    const float h = height_at(p, hf, k.feet_w[0], k.feet_w[1]);
+    const float pen = h - k.feet_w[2];
     const bool active = pen > 0.0f;
     const float gate = clampf(pen / p.damp_pen, 0.0f, 1.0f);
-    float fn = active ? p.contact_kp * pen - p.contact_kd * gate * k.feet_vw[l][2] : 0.0f;
+    float fn = active ? p.contact_kp * pen - p.contact_kd * gate * k.feet_vw[2] : 0.0f;
     fn = clampf(fn, 0.0f, 200.0f);
     float ft[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float raw = -p.tangent_kp * (k.feet_w[l][i] - s.anchor[l][i]) - p.tangent_kd * k.feet_vw[l][i];
+      const float raw = -p.tangent_kp * (k.feet_w[i] - ls.anchor[i]) - p.tangent_kd * k.feet_vw[i];
       ft[i] = active ? raw : 0.0f;
     }
     const float mag = sqrtf(ft[0] * ft[0] + ft[1] * ft[1]);
@@ -287,11 +326,24 @@ DEV void step_from_kinematics(const TickParams& p, const float* __restrict__ hf,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       ft[i] = ft[i] * scale;
-      const float slide = k.feet_w[l][i] + (ft[i] + p.tangent_kd * k.feet_vw[l][i]) / p.tangent_kp;
-      n.anchor[l][i] = active ? (sliding ? slide : s.anchor[l][i]) : k.feet_w[l][i];
-      fc[l][i] = ft[i];
+      const float slide = k.feet_w[i] + (ft[i] + p.tangent_kd * k.feet_vw[i]) / p.tangent_kp;
+      nl.anchor[i] = active ? (sliding ? slide : ls.anchor[i]) : k.feet_w[i];
+      fc[i] = ft[i];
     }
-    fc[l][2] = fn;
+    fc[2] = fn;
+  }
+  float cl[3];
+  cross3(k.arm_w, fc, cl);
+
+  // The four legs' forces and moments, on every lane of the group.
+  float fcs[4][3], cs[4][3];
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      fcs[l][i] = __shfl_sync(kFullMask, fc[i], lane0 + l);
+      cs[l][i] = __shfl_sync(kFullMask, cl[i], lane0 + l);
+    }
   }
 
   // Base wrench: feet, gravity, and the base collision sphere.
@@ -300,16 +352,12 @@ DEV void step_from_kinematics(const TickParams& p, const float* __restrict__ hf,
   const float fbz = clampf(penb > 0.0f ? p.contact_kp * penb - p.contact_kd * s.v[2] : 0.0f, 0.0f, 200.0f);
   float F[3], T[3] = {0.0f, 0.0f, 0.0f};
 #pragma unroll
-  for (int i = 0; i < 3; ++i) F[i] = fc[0][i] + fc[1][i] + fc[2][i] + fc[3][i];
+  for (int i = 0; i < 3; ++i) F[i] = fcs[0][i] + fcs[1][i] + fcs[2][i] + fcs[3][i];
   F[2] = F[2] + p.weight_z + fbz;
 #pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    float c[3];
-    cross3(k.arm_w[l], fc[l], c);
+  for (int l = 0; l < 4; ++l)
 #pragma unroll
-    for (int i = 0; i < 3; ++i) T[i] = l == 0 ? c[i] : T[i] + c[i];
-  }
-  const float(&R)[3][3] = k.R;
+    for (int i = 0; i < 3; ++i) T[i] = l == 0 ? cs[l][i] : T[i] + cs[l][i];
   float Iw[3][3], Iinv[3][3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -330,20 +378,16 @@ DEV void step_from_kinematics(const TickParams& p, const float* __restrict__ hf,
 #pragma unroll
   for (int i = 0; i < 3; ++i) wd[i] = Iinv[i][0] * m[0] + Iinv[i][1] * m[1] + Iinv[i][2] * m[2];
 
-  // Joints: motor torque and the contact reaction J^T R^T f per leg.
+  // The lane's joints: motor torque and the contact reaction J^T R^T f.
+  float fb[3];
 #pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    float fb[3];
+  for (int j = 0; j < 3; ++j) fb[j] = fc[0] * R[0][j] + fc[1] * R[1][j] + fc[2] * R[2][j];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) fb[j] = fc[l][0] * R[0][j] + fc[l][1] * R[1][j] + fc[l][2] * R[2][j];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      const int i = 3 * l + j;
-      const float tc = fb[0] * k.J[l][0][j] + fb[1] * k.J[l][1][j] + fb[2] * k.J[l][2][j];
-      const float qdd = (tau[i] + tc - p.joint_damping * s.qd[i]) / p.joint_inertia;
-      n.qd[i] = s.qd[i] + p.dt * qdd;
-      n.q[i] = s.q[i] + p.dt * n.qd[i];
-    }
+  for (int j = 0; j < 3; ++j) {
+    const float tc = fb[0] * k.J[0][j] + fb[1] * k.J[1][j] + fb[2] * k.J[2][j];
+    const float qdd = (tau[j] + tc - p.joint_damping * ls.qd[j]) / p.joint_inertia;
+    nl.qd[j] = ls.qd[j] + p.dt * qdd;
+    nl.q[j] = ls.q[j] + p.dt * nl.qd[j];
   }
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -376,256 +420,318 @@ DEV void rotz_delta(const float p3[3], float ca, float sa, float out[2]) {
   out[1] = sa * p3[0] + ca * p3[1];
 }
 
+// The controller's filters: the correction of the lane's leg, and the
+// base's velocity and yaw errors (the same on the four lanes).
 struct Filters {
-  float corr[4][3], verr[3], yerr;
+  float corr[3], verr[3], yerr;
 };
 
-// One tick of the controller and the physics (`_tick`): from carry
-// (s, q_prev, flt) and `row` to the next carry (n, q_plan, nf) and the
-// tick's trace row `out`.
-DEV void tick(const TickParams& p, const float* __restrict__ hf, const float* row, const State& s,
-              const float q_prev[12], const Filters& flt, State& n, float q_plan[12], Filters& nf,
-              float out[kTrace]) {
-  float fpb[4][3];
-  plan_feet_base(row, fpb);
-  ik(p, fpb, q_plan);
-  float qd_des[12];
-#pragma unroll
-  for (int j = 0; j < 12; ++j) qd_des[j] = (q_plan[j] - q_prev[j]) / p.dt;
-  Kin k;
-  foot_kinematics(p, s, k);
-  float eul_live[3];
-  rot_to_euler(k.R, eul_live);
-  nf = flt;
+// What one lane reads of a tick's row and of its scratch row: the planned
+// base position, yaw and velocity, and the lane's leg's planned force and
+// foot; the planned foot in the planned base frame, the planned joints and
+// the desired joint velocities of phase 1.
+struct RowIn {
+  float r[3], yaw, v[3], f[3], foot[3], fpb[3], q_plan[3], qd_des[3];
+};
 
-  float q_des[12];
+DEV void load_row(const float* row, const float* plan, int l, RowIn& in) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    in.r[i] = row[1 + i];
+    in.v[i] = row[19 + i];
+    in.f[i] = row[25 + 3 * l + i];
+    in.foot[i] = row[7 + 3 * l + i];
+    in.fpb[i] = plan[kPlanLeg * l + i];
+    in.q_plan[i] = plan[kPlanLeg * l + 3 + i];
+    in.qd_des[i] = plan[kPlanLeg * l + 6 + i];
+  }
+  in.yaw = row[6];
+}
+
+// The joint targets of the lane's leg (`_tick`'s three frames) and the
+// updated filters; tau_ff the force feed-forward when it is on.
+DEV void controller(const TickParams& p, const Leg& g, const RowIn& in, const Base& s, const float R[3][3],
+                    const LegKin& k, const Filters& flt, float q_des[3], Filters& nf, float tau_ff[3]) {
+  float eul_live[3];
+  rot_to_euler(R, eul_live);
+  nf = flt;
   if (p.frame == 0) {
 #pragma unroll
-    for (int j = 0; j < 12; ++j) q_des[j] = q_plan[j];
+    for (int j = 0; j < 3; ++j) q_des[j] = in.q_plan[j];
   } else if (p.frame == 1) {
     float corr_w[3], corr_b[3], verr_w[3], cp_w[3], cp_b[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) corr_w[i] = clampf(p.base_corr * (s.pos[i] - row[1 + i]), -p.max_corr, p.max_corr);
+    for (int i = 0; i < 3; ++i) corr_w[i] = clampf(p.base_corr * (s.pos[i] - in.r[i]), -p.max_corr, p.max_corr);
 #pragma unroll
-    for (int j = 0; j < 3; ++j) corr_b[j] = corr_w[0] * k.R[0][j] + corr_w[1] * k.R[1][j] + corr_w[2] * k.R[2][j];
-    verr_w[0] = (s.v[0] - row[19]) * 1.0f;
-    verr_w[1] = (s.v[1] - row[20]) * 1.0f;
-    verr_w[2] = (s.v[2] - row[21]) * 0.0f;
+    for (int j = 0; j < 3; ++j) corr_b[j] = corr_w[0] * R[0][j] + corr_w[1] * R[1][j] + corr_w[2] * R[2][j];
+    verr_w[0] = (s.v[0] - in.v[0]) * 1.0f;
+    verr_w[1] = (s.v[1] - in.v[1]) * 1.0f;
+    verr_w[2] = (s.v[2] - in.v[2]) * 0.0f;
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
       nf.verr[i] = flt.verr[i] + p.beta * (verr_w[i] - flt.verr[i]);
       cp_w[i] = clampf(p.vel_corr * nf.verr[i], -p.max_corr, p.max_corr);
     }
 #pragma unroll
-    for (int j = 0; j < 3; ++j) cp_b[j] = cp_w[0] * k.R[0][j] + cp_w[1] * k.R[1][j] + cp_w[2] * k.R[2][j];
-    const float yd = eul_live[2] - row[6];
+    for (int j = 0; j < 3; ++j) cp_b[j] = cp_w[0] * R[0][j] + cp_w[1] * R[1][j] + cp_w[2] * R[2][j];
+    const float yd = eul_live[2] - in.yaw;
     const float yaw_err = atan2f(sinf(yd), cosf(yd));
     nf.yerr = flt.yerr + p.gamma * (yaw_err - flt.yerr);
     const float yawc = clampf(p.yaw_corr * nf.yerr, -p.max_yaw_corr, p.max_yaw_corr);
-    const float ca_st = cosf(yawc) - 1.0f, sa_st = sinf(yawc);
-    const float ca_sw = cosf(-yawc) - 1.0f, sa_sw = sinf(-yawc);
-    float target[4][3];
-#pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      float delta[3], rd[2];
-      if (row[27 + 3 * l] > 1.0f) {  // planned contact: +err and +yaw
-        rotz_delta(fpb[l], ca_st, sa_st, rd);
-        delta[0] = corr_b[0] + rd[0];
-        delta[1] = corr_b[1] + rd[1];
-        delta[2] = corr_b[2] + 0.0f;
-      } else {                      // swing: -err and the capture point in xy, -yaw
-        rotz_delta(fpb[l], ca_sw, sa_sw, rd);
-        delta[0] = (-corr_b[0] + cp_b[0]) * 1.0f + rd[0];
-        delta[1] = (-corr_b[1] + cp_b[1]) * 1.0f + rd[1];
-        delta[2] = (-corr_b[2] + cp_b[2]) * 0.0f + 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        nf.corr[l][i] = flt.corr[l][i] + p.alpha * (delta[i] - flt.corr[l][i]);
-        target[l][i] = fpb[l][i] + nf.corr[l][i];
-      }
+    float delta[3], rd[2];
+    if (in.f[2] > 1.0f) {  // planned contact: +err and +yaw
+      rotz_delta(in.fpb, cosf(yawc) - 1.0f, sinf(yawc), rd);
+      delta[0] = corr_b[0] + rd[0];
+      delta[1] = corr_b[1] + rd[1];
+      delta[2] = corr_b[2] + 0.0f;
+    } else {               // swing: -err and the capture point in xy, -yaw
+      rotz_delta(in.fpb, cosf(-yawc) - 1.0f, sinf(-yawc), rd);
+      delta[0] = (-corr_b[0] + cp_b[0]) * 1.0f + rd[0];
+      delta[1] = (-corr_b[1] + cp_b[1]) * 1.0f + rd[1];
+      delta[2] = (-corr_b[2] + cp_b[2]) * 0.0f + 0.0f;
     }
-    ik(p, target, q_des);
+    float target[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      nf.corr[i] = flt.corr[i] + p.alpha * (delta[i] - flt.corr[i]);
+      target[i] = in.fpb[i] + nf.corr[i];
+    }
+    leg_ik(p, target, g.hip, g.lateral, g.knee, q_des);
   } else {
-    float shift[3], feet_b[4][3];
+    float shift[3], d[3], feet_b[3];
 #pragma unroll
-    for (int i = 0; i < 3; ++i) shift[i] = (s.pos[i] - row[1 + i]) * p.one_minus_base_corr;
+    for (int i = 0; i < 3; ++i) shift[i] = (s.pos[i] - in.r[i]) * p.one_minus_base_corr;
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      float d[3];
+    for (int i = 0; i < 3; ++i) d[i] = in.foot[i] + shift[i] - s.pos[i];
 #pragma unroll
-      for (int i = 0; i < 3; ++i) d[i] = row[7 + 3 * l + i] + shift[i] - s.pos[i];
-#pragma unroll
-      for (int j = 0; j < 3; ++j) feet_b[l][j] = d[0] * k.R[0][j] + d[1] * k.R[1][j] + d[2] * k.R[2][j];
-    }
-    ik(p, feet_b, q_des);
+    for (int j = 0; j < 3; ++j) feet_b[j] = d[0] * R[0][j] + d[1] * R[1][j] + d[2] * R[2][j];
+    leg_ik(p, feet_b, g.hip, g.lateral, g.knee, q_des);
   }
-
-  float tau_ff[12];
   if (p.use_force_ff) {
-    // -J^T R(eul_live)^T f per leg: the reaction to the planned contact force
-    float Rf[3][3];
+    // -J^T R(eul_live)^T f: the reaction to the planned contact force
+    float Rf[3][3], fb[3];
     euler_to_rot(eul_live, Rf);
 #pragma unroll
-    for (int l = 0; l < 4; ++l) {
-      const float* f = row + 25 + 3 * l;
-      float fb[3];
+    for (int j = 0; j < 3; ++j) fb[j] = in.f[0] * Rf[0][j] + in.f[1] * Rf[1][j] + in.f[2] * Rf[2][j];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) fb[j] = f[0] * Rf[0][j] + f[1] * Rf[1][j] + f[2] * Rf[2][j];
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-        tau_ff[3 * l + j] = -(fb[0] * k.J[l][0][j] + fb[1] * k.J[l][1][j] + fb[2] * k.J[l][2][j]);
-    }
-  }
-  float tau[12];
-  pd_torque(p, q_des, qd_des, s, p.use_force_ff ? tau_ff : nullptr, tau);
-  step_from_kinematics(p, hf, s, tau, k, n);
-
-  // The trace row.
-  float Rq[3][3], eul[3], Rn[3][3], feet_b[4][3];
-  quat_to_rot(n.quat, Rq);
-  rot_to_euler(Rq, eul);
-  euler_to_rot(eul, Rn);
-  fk(p, n.q, feet_b, nullptr);
-  out[0] = norm3(n.pos[0] - row[1], n.pos[1] - row[2], n.pos[2] - row[3]);
-  float ee = 0.0f;
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    float fw[3];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      fw[j] = n.pos[j] + (feet_b[l][0] * Rn[j][0] + feet_b[l][1] * Rn[j][1] + feet_b[l][2] * Rn[j][2]);
-      out[5 + 3 * l + j] = fw[j];
-    }
-    const float e = norm3(fw[0] - row[7 + 3 * l], fw[1] - row[8 + 3 * l], fw[2] - row[9 + 3 * l]);
-    ee = l == 0 ? e : ee + e;
-  }
-  out[1] = ee / 4.0f;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    out[2 + i] = n.pos[i];
-    out[53 + i] = eul[i];
-  }
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    out[17 + j] = n.q[j];
-    out[29 + j] = n.qd[j];
-    out[41 + j] = tau[j];
+    for (int j = 0; j < 3; ++j) tau_ff[j] = -(fb[0] * k.J[0][j] + fb[1] * k.J[1][j] + fb[2] * k.J[2][j]);
   }
 }
 
-DEV void load_state(const float* x, State& s) {
+// Picks a[l] of a register array with a runtime l, without local memory.
+template <int N>
+DEV float pick(const float (&a)[N], int l) {
+  float r = a[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i) r = l == i ? a[i] : r;
+  return r;
+}
+
+DEV void load_state(const float* x, int l, Base& s, LegState& ls) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     s.pos[i] = x[i];
     s.v[i] = x[7 + i];
     s.w[i] = x[10 + i];
+    ls.q[i] = x[13 + 3 * l + i];
+    ls.qd[i] = x[25 + 3 * l + i];
   }
 #pragma unroll
   for (int i = 0; i < 4; ++i) s.quat[i] = x[3 + i];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    s.q[i] = x[13 + i];
-    s.qd[i] = x[25 + i];
-  }
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    s.anchor[l][0] = x[37 + 2 * l];
-    s.anchor[l][1] = x[38 + 2 * l];
-  }
+  ls.anchor[0] = x[37 + 2 * l];
+  ls.anchor[1] = x[38 + 2 * l];
 }
 
-DEV void store_state(const State& s, float* x) {
+// Each lane writes its leg; lane l < 3 writes pos[l], v[l] and w[l], lane l
+// quat[l].
+DEV void store_state(const Base& s, const LegState& ls, int l, float* x) {
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    x[i] = s.pos[i];
-    x[7 + i] = s.v[i];
-    x[10 + i] = s.w[i];
+    x[13 + 3 * l + i] = ls.q[i];
+    x[25 + 3 * l + i] = ls.qd[i];
   }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) x[3 + i] = s.quat[i];
-#pragma unroll
-  for (int i = 0; i < 12; ++i) {
-    x[13 + i] = s.q[i];
-    x[25 + i] = s.qd[i];
-  }
-#pragma unroll
-  for (int l = 0; l < 4; ++l) {
-    x[37 + 2 * l] = s.anchor[l][0];
-    x[38 + 2 * l] = s.anchor[l][1];
+  x[37 + 2 * l] = ls.anchor[0];
+  x[38 + 2 * l] = ls.anchor[1];
+  x[3 + l] = pick(s.quat, l);
+  if (l < 3) {
+    x[l] = pick(s.pos, l);
+    x[7 + l] = pick(s.v, l);
+    x[10 + l] = pick(s.w, l);
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// Phase 1 for rows [0, n * T) of the block's episodes from b0.
+DEV void plan_pass(const TickParams& p, const float* __restrict__ table, const int* __restrict__ n_valid,
+                   float* scratch, int b0, int n, int T) {
+  const int rows = n * T;
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+    const size_t r = (size_t)b0 * T + i;
+    float fpb[4][3], q_plan[12];
+    plan_feet_base(table + r * kRow, fpb);
+#pragma unroll
+    for (int l = 0; l < 4; ++l) leg_ik(p, fpb[l], p.hips + 3 * l, p.lateral[l], p.knee[l], q_plan + 3 * l);
+    float* o = scratch + r * kScratch;
+#pragma unroll
+    for (int l = 0; l < 4; ++l)
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        o[kPlanLeg * l + j] = fpb[l][j];
+        o[kPlanLeg * l + 3 + j] = q_plan[3 * l + j];
+      }
+  }
+  __syncthreads();
+  // q_prev at tick t is the plan of the carry's last committed tick: ticks
+  // at or past n_valid commit nothing.
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+    const int t = i % T;
+    const int k = min(t, n_valid[b0 + i / T]);
+    const size_t r = (size_t)b0 * T + i;
+    const float* prev = scratch + (r - t + (k > 0 ? k - 1 : 0)) * kScratch;
+    float* o = scratch + r * kScratch;
+#pragma unroll
+    for (int l = 0; l < 4; ++l)
+#pragma unroll
+      for (int j = 0; j < 3; ++j)
+        o[kPlanLeg * l + 6 + j] = (o[kPlanLeg * l + 3 + j] - prev[kPlanLeg * l + 3 + j]) / p.dt;
+  }
+}
+
+// Phase 3 for rows [0, n * T) of the block's episodes from b0: the trace
+// entries of the state after each tick that the chain left out.
+DEV void trace_pass(const TickParams& p, const float* __restrict__ table, const float* scratch, float* traces,
+                    int b0, int n, int T) {
+  const int rows = n * T;
+  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+    const size_t r = (size_t)b0 * T + i;
+    const float* row = table + r * kRow;
+    float* out = traces + r * kTrace;
+    float pos[3], q[12], quat[4];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) pos[j] = out[2 + j];
+#pragma unroll
+    for (int j = 0; j < 12; ++j) q[j] = out[17 + j];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) quat[j] = scratch[r * kScratch + kQuat + j];
+    float Rq[3][3], eul[3], Rn[3][3], feet_b[4][3];
+    quat_to_rot(quat, Rq);
+    rot_to_euler(Rq, eul);
+    euler_to_rot(eul, Rn);
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      float f[3];
+      leg_fk(p, q + 3 * l, p.lateral[l], f, nullptr);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) feet_b[l][j] = p.hips[3 * l + j] + f[j];
+    }
+    out[0] = norm3(pos[0] - row[1], pos[1] - row[2], pos[2] - row[3]);
+    float ee = 0.0f;
+#pragma unroll
+    for (int l = 0; l < 4; ++l) {
+      float fw[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        fw[j] = pos[j] + (feet_b[l][0] * Rn[j][0] + feet_b[l][1] * Rn[j][1] + feet_b[l][2] * Rn[j][2]);
+        out[5 + 3 * l + j] = fw[j];
+      }
+      const float e = norm3(fw[0] - row[7 + 3 * l], fw[1] - row[8 + 3 * l], fw[2] - row[9 + 3 * l]);
+      ee = l == 0 ? e : ee + e;
+    }
+    out[1] = ee / 4.0f;
+#pragma unroll
+    for (int j = 0; j < 3; ++j) out[53 + j] = eul[j];
+  }
+}
+
+// One block per SM is enough: without the 1, ptxas held the kernel to 128
+// registers and spilled.
+__global__ void __launch_bounds__(kThreads, 1)
 tick_kernel(TickParams p, const float* __restrict__ table, const float* __restrict__ state_in,
             const int* __restrict__ n_valid, const float* __restrict__ hf, float* __restrict__ state_out,
-            float* __restrict__ traces, int B, int T, int mode) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  State s;
-  load_state(state_in + (size_t)b * kState, s);
-
-  if (mode == 1) {  // stance hold: PD to the initial joints, zero desired velocity
-    float q_hold[12];
-#pragma unroll
-    for (int j = 0; j < 12; ++j) q_hold[j] = s.q[j];
-    for (int t = 0; t < T; ++t) {
-      Kin k;
-      foot_kinematics(p, s, k);
-      float tau[12];
-      pd_torque(p, q_hold, nullptr, s, nullptr, tau);
-      State n;
-      step_from_kinematics(p, hf, s, tau, k, n);
-      s = n;
-    }
-    store_state(s, state_out + (size_t)b * kState);
-    return;
+            float* traces, float* scratch, int B, int T, int mode) {
+  const int b0 = blockIdx.x * kEpisodes;
+  const int n = min(kEpisodes, B - b0);  // the block's episodes
+  if (mode == 0) {
+    plan_pass(p, table, n_valid, scratch, b0, n, T);
+    __syncthreads();
   }
-
-  const float* rows = table + (size_t)b * T * kRow;
-  float* tr = traces + (size_t)b * T * kTrace;
-  const int nv = n_valid[b];
-  float cur[kRow], nxt[kRow];
+  if (threadIdx.x < 32) {
+    // Phase 2: lane 4 g + l carries leg l of episode b0 + g.
+    const int lane = threadIdx.x, l = lane & 3, lane0 = lane & ~3;
+    const int b = b0 + (lane >> 2);
+    const bool live = b < B;
+    const int bl = live ? b : B - 1;  // a group past B plays the last episode again, writing nothing
+    const Leg g = leg_params(p, l);
+    Base s;
+    LegState ls;
+    load_state(state_in + (size_t)bl * kState, l, s, ls);
+    if (mode == 1) {  // stance hold: PD to the initial joints, zero desired velocity
+      float q_hold[3];
 #pragma unroll
-  for (int i = 0; i < kRow; ++i) nxt[i] = T > 0 ? rows[i] : 0.0f;
-  float q_prev[12];
-  {
-    float fpb[4][3];
-    plan_feet_base(nxt, fpb);
-    ik(p, fpb, q_prev);
-  }
-  Filters flt;
+      for (int j = 0; j < 3; ++j) q_hold[j] = ls.q[j];
+      for (int t = 0; t < T; ++t) {
+        float R[3][3];
+        quat_to_rot(s.quat, R);
+        LegKin k;
+        leg_kinematics(p, g, s, R, ls, k);
+        float tau[3];
+        pd_torque(p, g, q_hold, nullptr, ls, nullptr, tau);
+        Base ns;
+        LegState nl;
+        step(p, hf, lane0, s, ls, R, k, tau, ns, nl);
+        s = ns;
+        ls = nl;
+      }
+    } else {
+      const float* rows = table + (size_t)bl * T * kRow;
+      const float* plan = scratch + (size_t)bl * T * kScratch;
+      float* tr = traces + (size_t)bl * T * kTrace;
+      float* quats = scratch + (size_t)bl * T * kScratch + kQuat;
+      const int nv = n_valid[bl];
+      Filters flt;
 #pragma unroll
-  for (int l = 0; l < 4; ++l)
+      for (int i = 0; i < 3; ++i) flt.corr[i] = flt.verr[i] = 0.0f;
+      flt.yerr = 0.0f;
+      RowIn nxt;
+      if (T > 0) load_row(rows, plan, l, nxt);
+      for (int t = 0; t < T; ++t) {
+        const RowIn in = nxt;
+        if (t + 1 < T)  // the next row's loads are in flight during this tick
+          load_row(rows + (size_t)(t + 1) * kRow, plan + (size_t)(t + 1) * kScratch, l, nxt);
+        float R[3][3];
+        quat_to_rot(s.quat, R);
+        LegKin k;
+        leg_kinematics(p, g, s, R, ls, k);
+        float q_des[3], tau_ff[3], tau[3];
+        Filters nf;
+        controller(p, g, in, s, R, k, flt, q_des, nf, tau_ff);
+        pd_torque(p, g, q_des, in.qd_des, ls, p.use_force_ff ? tau_ff : nullptr, tau);
+        Base ns;
+        LegState nl;
+        step(p, hf, lane0, s, ls, R, k, tau, ns, nl);
+        if (live) {
+          float* o = tr + (size_t)t * kTrace;
 #pragma unroll
-    for (int i = 0; i < 3; ++i) flt.corr[l][i] = 0.0f;
-#pragma unroll
-  for (int i = 0; i < 3; ++i) flt.verr[i] = 0.0f;
-  flt.yerr = 0.0f;
-
-  for (int t = 0; t < T; ++t) {
-#pragma unroll
-    for (int i = 0; i < kRow; ++i) cur[i] = nxt[i];
-    if (t + 1 < T) {  // the next row's loads are in flight during this tick
-      const float* r = rows + (size_t)(t + 1) * kRow;
-#pragma unroll
-      for (int i = 0; i < kRow; ++i) nxt[i] = r[i];
+          for (int j = 0; j < 3; ++j) {
+            o[17 + 3 * l + j] = nl.q[j];
+            o[29 + 3 * l + j] = nl.qd[j];
+            o[41 + 3 * l + j] = tau[j];
+          }
+          if (l < 3) o[2 + l] = pick(ns.pos, l);
+          quats[(size_t)t * kScratch + l] = pick(ns.quat, l);
+        }
+        if (t < nv) {  // ticks at or past n_valid leave the carry as it was
+          s = ns;
+          ls = nl;
+          flt = nf;
+        }
+      }
     }
-    State n;
-    float q_plan[12], out[kTrace];
-    Filters nf;
-    tick(p, hf, cur, s, q_prev, flt, n, q_plan, nf, out);
-    float* o = tr + (size_t)t * kTrace;
-#pragma unroll
-    for (int i = 0; i < kTrace; ++i) o[i] = out[i];
-    if (t < nv) {  // ticks at or past n_valid leave the carry as it was
-      s = n;
-#pragma unroll
-      for (int j = 0; j < 12; ++j) q_prev[j] = q_plan[j];
-      flt = nf;
-    }
+    if (live) store_state(s, ls, l, state_out + (size_t)b * kState);
   }
-  store_state(s, state_out + (size_t)b * kState);
+  if (mode == 0) {
+    __syncthreads();
+    trace_pass(p, table, scratch, traces, b0, n, T);
+  }
 }
 
 }  // namespace
@@ -643,19 +749,22 @@ extern "C" const char* tick_param_layout() {
 
 extern "C" int tick_state_floats() { return kState; }
 extern "C" int tick_trace_floats() { return kTrace; }
+// Floats of scratch per (episode, tick) that a playback needs.
+extern "C" int tick_scratch_floats() { return kScratch; }
 
 // Launches one chunk on `stream`: mode 0 plays `table` (B, T, 37) from
 // `state_in` (B, 45) with per-episode `n_valid` (B,) and writes `state_out`
-// (B, 45) and `traces` (B, T, 56); mode 1 holds for T steps (table, n_valid
-// and traces unused).  `hf` is the (rows, cols) height grid.  Returns the
+// (B, 45) and `traces` (B, T, 56), using `scratch` (B, T,
+// tick_scratch_floats()); mode 1 holds for T steps (table, n_valid, traces
+// and scratch unused).  `hf` is the (rows, cols) height grid.  Returns the
 // launch's CUDA error (0 when it was accepted).
 extern "C" int tick_run(const float* params, int n_params, int frame, int use_force_ff, const void* table,
                         const void* state_in, const void* n_valid, const void* hf, int hf_rows, int hf_cols,
-                        void* state_out, void* traces, int B, int T, int mode, void* stream) {
+                        void* state_out, void* traces, void* scratch, int B, int T, int mode, void* stream) {
   TickParams p;
   const int want = (int)(offsetof(TickParams, frame) / sizeof(float));
   if (n_params != want || B <= 0 || T < 0 || hf_rows < 2 || hf_cols < 2 || (mode != 0 && mode != 1) ||
-      frame < 0 || frame > 2 || (mode == 0 && (!table || !n_valid || !traces)))
+      frame < 0 || frame > 2 || (mode == 0 && (!table || !n_valid || !traces || !scratch)))
     return (int)cudaErrorInvalidValue;
   float* dst = reinterpret_cast<float*>(&p);
   for (int i = 0; i < n_params; ++i) dst[i] = params[i];
@@ -669,8 +778,10 @@ extern "C" int tick_run(const float* params, int n_params, int frame, int use_fo
   const float* hf_f = static_cast<const float*>(hf);
   float* state_out_f = static_cast<float*>(state_out);
   float* traces_f = static_cast<float*>(traces);
-  void* args[] = {&p, &table_f, &state_in_f, &n_valid_i, &hf_f, &state_out_f, &traces_f, &B, &T, &mode};
-  cudaError_t err = cudaLaunchKernel(tick_kernel, dim3((B + kThreads - 1) / kThreads), dim3(kThreads), args,
+  float* scratch_f = static_cast<float*>(scratch);
+  void* args[] = {&p, &table_f, &state_in_f, &n_valid_i, &hf_f, &state_out_f, &traces_f, &scratch_f,
+                  &B, &T, &mode};
+  cudaError_t err = cudaLaunchKernel(tick_kernel, dim3((B + kEpisodes - 1) / kEpisodes), dim3(kThreads), args,
                                      0, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);

@@ -17,7 +17,10 @@ call, in the layout the library reports (`tick_param_layout`).
 
 The kernel reads the state as one (B, 45) row per episode and writes the
 traces as one (B, T, 56) tensor; the returned state leaves and trace entries
-are views of those two tensors.
+are views of those two tensors.  A playback also gives the kernel a (B, T,
+`tick_scratch_floats()`) scratch for its table pass (the planned joints and
+desired joint velocities of every row) and the chain's quaternions, which
+its trace pass reads.
 """
 
 from __future__ import annotations
@@ -51,23 +54,32 @@ _lib = None
 _lib_lock = threading.Lock()
 
 
-def build(verbose: bool = False) -> str:
-    """Compile `csrc/tick.cu` into a shared library (if not built yet) and
-    return its path.  ``verbose`` adds ``-Xptxas -v`` and prints its report."""
-    with open(SOURCE, "rb") as f:
+def nvcc_command(src: str, out: str, verbose: bool = False) -> list:
+    """The nvcc command that builds the kernel source `src` into the shared
+    library `out`: sm_90a, `--fmad=false`, no fast math; ``verbose`` adds
+    ``-Xptxas -v`` (registers, stack frame and spills of each kernel)."""
+    cmd = [
+        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
+        "-shared", "-Xcompiler", "-fPIC", "-o", out, src,
+    ]
+    if verbose:
+        cmd[1:1] = ["-Xptxas", "-v"]
+    return cmd
+
+
+def build(verbose: bool = False, source: str = SOURCE, stem: str = "libqtos_tick") -> str:
+    """Compile `csrc/tick.cu` (or another `source` with the same flags) into
+    a shared library named from `stem` and the source's hash, if not built
+    yet, and return its path.  ``verbose`` adds ``-Xptxas -v`` and prints its
+    report."""
+    with open(source, "rb") as f:
         tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libqtos_tick_{tag}.so")
+    out = os.path.join(BUILD_DIR, f"{stem}_{tag}.so")
     if os.path.exists(out) and not verbose:
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-        "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE,
-    ]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    proc = subprocess.run(nvcc_command(source, tmp, verbose), capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
     if verbose:
@@ -81,11 +93,11 @@ def load_library(path: str):
     the same source in the tests) with its functions' argument types set."""
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.tick_run.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, ci, vp, vp, ci, ci, ci, vp]
+    lib.tick_run.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, ci, vp, vp, vp, ci, ci, ci, vp]
     lib.tick_run.restype = ci
     lib.tick_param_layout.argtypes = []
     lib.tick_param_layout.restype = ctypes.c_char_p
-    for name in ("tick_state_floats", "tick_trace_floats"):
+    for name in ("tick_state_floats", "tick_trace_floats", "tick_scratch_floats"):
         getattr(lib, name).restype = ci
     if (lib.tick_state_floats(), lib.tick_trace_floats()) != (STATE_FLOATS, TRACE_FLOATS):
         raise RuntimeError("tick library's state or trace row differs from qtos_torch.ops.tick's layout")
@@ -167,11 +179,14 @@ def _unpack_state(x: torch.Tensor, batch) -> SimState:
                        for name, i, shape in STATE_LAYOUT})
 
 
-def run(lib, state0: SimState, terrain, params, table=None, n_valid=None, hold_steps=0, stream=None):
+def run(lib, state0: SimState, terrain, params, table=None, n_valid=None, hold_steps=0, stream=None,
+        scratch=None):
     """One launch of the kernel in `lib` on the tensors' own memory: the
     playback of `table` (..., T, 37) when it is given, else `hold_steps`
     steps of the stance hold.  Returns (final state, traces or None).  The
-    caller gives the stream (None: the default one) and counts the launch."""
+    caller gives the stream (None: the default one) and counts the launch,
+    and may give the playback's (B, T, `tick_scratch_floats()`) scratch
+    (None: a new one)."""
     if table is not None:
         if table.dim() < 2 or table.shape[-1] != ROW or table.shape[-2] < 1:
             raise ValueError(f"tick kernel takes a (..., T, {ROW}) table with T >= 1, got {tuple(table.shape)}")
@@ -194,6 +209,12 @@ def run(lib, state0: SimState, terrain, params, table=None, n_valid=None, hold_s
     traces = nv = None
     if table is not None:
         traces = torch.empty((B, T, TRACE_FLOATS), dtype=torch.float32, device=dev)
+        shape = (B, T, lib.tick_scratch_floats())
+        if scratch is None:
+            scratch = torch.empty(shape, dtype=torch.float32, device=dev)
+        elif tuple(scratch.shape) != shape or not scratch.is_contiguous():
+            raise ValueError(f"tick kernel takes a contiguous {shape} scratch, got {tuple(scratch.shape)}")
+        _check(scratch, "scratch", dev)
         if n_valid is None:
             n_valid = T
         if isinstance(n_valid, torch.Tensor):
@@ -207,7 +228,7 @@ def run(lib, state0: SimState, terrain, params, table=None, n_valid=None, hold_s
         err = lib.tick_run(
             consts.ctypes.data, consts.size, FRAMES.get(params.frame, 2), int(bool(params.use_force_ff)),
             ptr(table), state.data_ptr(), ptr(nv), h.data_ptr(), h.shape[0], h.shape[1],
-            out.data_ptr(), ptr(traces), B, T, 0 if table is not None else 1, stream,
+            out.data_ptr(), ptr(traces), ptr(scratch), B, T, 0 if table is not None else 1, stream,
         )
         if err != 0:
             raise RuntimeError(f"tick kernel launch failed: CUDA error {err}")

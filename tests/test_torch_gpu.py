@@ -221,6 +221,35 @@ def test_tick_kernel_matches_plain_on_card(cuda):
     assert all(f <= max(g, 2 * p) for f, g, p in zip(full, gates, plain_pair)), (full, plain_pair)
 
 
+@pytest.mark.parametrize("B", [5, 33])
+def test_tick_kernel_ragged_batch_matches_plain(cuda, B):
+    """B = 5 and 33 episodes, not multiples of the kernel's 8 episodes per
+    block, with per-episode n_valid 0, 166, 333 and 500: the kernel against
+    the plain loop, both on the card, over 500 ticks at the gates of
+    chip_smoke.py's phase 6c (1e-4 m, 5e-4 rad, 0.5 %), in one launch."""
+    from qtos_torch.control import ControlParams
+    from qtos_torch.control.loop import _hold_ticks, _metrics, _scan_ticks, state_from_row
+    from qtos_torch.ops.tick import tick_scan
+
+    terr, tables = _episodes(cuda, B=B)
+    tables = tables[:, :500].contiguous()
+    params = ControlParams()
+    s0 = _hold_ticks(state_from_row(tables[:, 0], terr, params), terr, params, 100)
+    n_valid = torch.tensor([500 * (i % 4) // 3 for i in range(B)], device=cuda)
+    before = tick_scan.launches
+    final_k, traces_k = tick_scan(tables, s0, terr, params, n_valid)
+    torch.cuda.synchronize()
+    assert tick_scan.launches == before + 1
+    final_p, traces_p = _scan_ticks(tables, s0, terr, params, n_valid)
+    mk, mp = _metrics(traces_k, n_valid), _metrics(traces_p, n_valid)
+    rel = float(((mk.avg_com_err_per_s - mp.avg_com_err_per_s).abs() / mp.avg_com_err_per_s).nan_to_num().max())
+    assert float((traces_k["pos"] - traces_p["pos"]).abs().max()) <= 1e-4
+    assert float((traces_k["q"] - traces_p["q"]).abs().max()) <= 5e-4
+    assert rel <= 5e-3
+    assert float((final_k.pos - final_p.pos).abs().max()) <= 1e-4
+    assert float((final_k.q - final_p.q).abs().max()) <= 5e-4
+
+
 def test_tick_kernel_launches_once_per_call(cuda):
     """`playback` (with an int and a per-episode `n_valid`), `playback_recorded`
     and `stance_warmup` each launch the kernel exactly once; n_valid = 0

@@ -58,6 +58,7 @@ PORT_MODULES = [
     "qtos_torch.tools.crossover",
     "qtos_torch.tools.profile_solve",
     "qtos_torch.tools.profile_tick",
+    "qtos_torch.tools.tick_floor",
     "qtos_torch.tools.riser",
 ]
 

@@ -45,7 +45,7 @@ from qtos_torch.convert import control_params_from_reference, terrain_from_refer
 from qtos_torch.ops import tick
 from qtos_torch.sim import SimState
 from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve_batch
-from qtos_torch.tools import riser
+from qtos_torch.tools import riser, tick_floor
 
 ATOL = 1e-5
 ATOL_TAU = 1e-3
@@ -56,8 +56,10 @@ STATE_FIELDS = ("pos", "quat", "v", "w", "q", "qd", "anchor")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 EMU_DIR = os.path.join(REPO, "qtos_torch", "csrc", "emu")
 KERNEL_SRC = os.path.join(REPO, "qtos_torch", "csrc", "tick.cu")
-# The line of tick.cu that freezes the carry at t >= n_valid.
+# The line of tick.cu that freezes the carry at t >= n_valid, and the
+# expression of its table pass that freezes q_prev there.
 FREEZE = re.compile(r"if \(t < nv\) \{")
+PLAN_FREEZE = re.compile(r"min\(t, n_valid\[b0 \+ i / T\]\)")
 
 
 def _build(src_dir, out):
@@ -209,17 +211,79 @@ def test_emulated_kernel_over_the_first_riser(lib):
 def test_emulated_kernel_needs_its_n_valid_freeze(world, tmp_path):
     """A copy of tick.cu whose freeze commits every tick must fail the
     n_valid case: the stand-in does not hide the freeze."""
-    with open(KERNEL_SRC) as f:
-        src = f.read()
-    assert len(FREEZE.findall(src)) == 1, "tick.cu freezes the carry in one place"
-    (tmp_path / "emu").mkdir()
-    (tmp_path / "tick.cu").write_text(FREEZE.sub("if (true) {", src))
-    shutil.copy(os.path.join(EMU_DIR, "tick_emu.cpp"), tmp_path / "emu" / "tick_emu.cpp")
-    mutant = _build(str(tmp_path), tmp_path / "libtick_mutant.so")
+    mutant = _mutant(tmp_path, FREEZE, "if (true) {")
     n_valid = torch.tensor([ROWS, 120, 0])
     final, _ = tick.run(mutant, world["s0"], world["terr"], ControlParams(), table=world["tables"], n_valid=n_valid)
     final_p, _ = _scan_ticks(world["tables"], world["s0"], world["terr"], ControlParams(), n_valid)
     assert not np.allclose(final.pos.numpy(), final_p.pos.numpy(), atol=ATOL_SHORT, rtol=0)
+
+
+def _mutant(tmp_path, pattern, text):
+    """tick.cu with its one match of `pattern` replaced by `text`, built."""
+    with open(KERNEL_SRC) as f:
+        src = f.read()
+    assert len(pattern.findall(src)) == 1, f"tick.cu has {pattern.pattern} in one place"
+    (tmp_path / "emu").mkdir()
+    (tmp_path / "tick.cu").write_text(pattern.sub(text, src))
+    shutil.copy(os.path.join(EMU_DIR, "tick_emu.cpp"), tmp_path / "emu" / "tick_emu.cpp")
+    return _build(str(tmp_path), tmp_path / "libtick_mutant.so")
+
+
+def test_emulated_kernel_needs_its_plan_freeze(world, tmp_path):
+    """A copy of tick.cu whose table pass takes q_prev from the tick before
+    t also past n_valid must fail the n_valid case: the desired joint
+    velocities of the ticks past it, and so their torques, change."""
+    mutant = _mutant(tmp_path, PLAN_FREEZE, "t")
+    n_valid = torch.tensor([ROWS, 120, 0])
+    _, traces = tick.run(mutant, world["s0"], world["terr"], ControlParams(), table=world["tables"], n_valid=n_valid)
+    _, traces_p = _scan_ticks(world["tables"], world["s0"], world["terr"], ControlParams(), n_valid)
+    assert not np.allclose(traces["tau"].numpy(), traces_p["tau"].numpy(), atol=ATOL_SHORT, rtol=0)
+
+
+@pytest.mark.parametrize("n", [5, 9])
+def test_emulated_kernel_ragged_batch(lib, world, n):
+    """B = 5 and 9, not multiples of the 8 episodes of a block (9 fills one
+    block and starts another): the masked lanes finish (no barrier or
+    shuffle waits for them) and the playback, with per-episode n_valid, and
+    the hold match the plain loops."""
+    idx = torch.arange(n) % B
+    rng = np.random.default_rng(n)
+    u = lambda scale, shape: torch.from_numpy((scale * rng.uniform(-1, 1, size=shape)).astype(np.float32))  # noqa: E731
+    s0 = SimState(**{k: getattr(world["s0"], k)[idx].contiguous() for k in STATE_FIELDS})
+    s0 = SimState(pos=s0.pos + u(0.01, (n, 3)), quat=s0.quat, v=s0.v + u(0.05, (n, 3)), w=s0.w, q=s0.q,
+                  qd=s0.qd + u(0.2, (n, 12)), anchor=s0.anchor)
+    tables = world["tables"][idx, :100].contiguous()
+    n_valid = torch.tensor([max(100 - 13 * i, 0) for i in range(n)])
+    params = ControlParams()
+    final, traces = tick.run(lib, s0, world["terr"], params, table=tables, n_valid=n_valid)
+    final_p, traces_p = _scan_ticks(tables, s0, world["terr"], params, n_valid)
+    _assert_state(final, final_p, ATOL_SHORT)
+    _assert_traces(traces, traces_p, ATOL_SHORT)
+    held, _ = tick.run(lib, s0, world["terr"], params, hold_steps=30)
+    _assert_state(held, _hold_ticks(s0, world["terr"], params, 30), ATOL_SHORT)
+
+
+def test_op_probe_runs_every_operation(tmp_path):
+    """The latency probe behind the design's floor
+    (`qtos_torch/tools/op_cycles.cu`, its own library) launches each
+    operation and leaves a count and a finite value (times only mean
+    something on the card)."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a host C++ compiler to build the probe's source for the CPU")
+    src = tmp_path / "op_cycles_emu.cpp"
+    src.write_text('#define EMU_TYPED_LAUNCH_ONLY\n#include "cuda_runtime.h"\nfloat* emu_smem_base = nullptr;\n'
+                   f'#include "{tick_floor.PROBE_SOURCE}"\n')
+    out = tmp_path / "libop_cycles_emu.so"
+    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-pthread", "-shared", "-fPIC",
+                    "-Wno-unknown-pragmas", "-I", EMU_DIR, "-o", str(out), str(src)],
+                   check=True, capture_output=True, text=True, timeout=300)
+    probe = tick_floor.load_probe(str(out))
+    buf = torch.zeros(64)
+    for op in range(len(tick_floor.OPS)):
+        assert probe.op_cycles(op, 16, buf.data_ptr(), None) == 0
+        assert float(buf[0]) > 0 and np.isfinite(float(buf[1]))
+    assert probe.op_cycles(len(tick_floor.OPS), 16, buf.data_ptr(), None) != 0
 
 
 def test_param_layout_is_the_libraries(lib):
