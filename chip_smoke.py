@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of qtos_torch on one CUDA card: builds both kernels from the
-checkout, holds each against its plain PyTorch version, drives the batched
+"""Smoke run of qtos_torch on one CUDA card: builds its three kernels from
+the checkout, holds each against its plain PyTorch version, drives the batched
 gait-NLP solve at bench width, plays solved trajectories through the physics,
 probes a feasibility map and plans over it, walks the exp_1 preset to its goal
 with the receding-horizon runner, paces a walk in real time, and checks the
@@ -10,9 +10,9 @@ results.
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build csrc/btd.cu, csrc/tick.cu and the tick's latency probe
-     (tools/op_cycles.cu) with nvcc for sm_90a, one nvcc each, all at once
-     (ptxas report: registers);
+  2. build csrc/btd.cu, csrc/tick.cu, csrc/assemble.cu and the tick's
+     latency probe (tools/op_cycles.cu) with nvcc for sm_90a, one nvcc each,
+     all at once (ptxas report: registers, spills);
   3. BTD kernel vs plain version on random SPD systems (the shapes of the
      tests and those of the driven paths: B=1, K=33; B=20, K=25; B=4, B=64,
      B=1024 and B=8192, K=41; B=3 and B=512, K=13; n=36) and on a Levenberg-Marquardt system of the main path;
@@ -20,9 +20,16 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the bound; the kernel's GB/s against the bound's bytes
      and against the bytes its design moves, its GFLOP/s, registers, shared
      memory per block and resident warps per SM;
+  3b. the assembly kernel vs its plain version (tools/check_assemble.py) at
+     every shape a path gives it ((1, 33), (4, 41), (20, 25), (64, 41),
+     (1024, 41), (8192, 41)) on the bench distribution's first iterate and
+     on a perturbed iterate over step terrain with every hinge family
+     active, two launches bit for bit; kernel, plain and bound ms at
+     (4, 41), (1024, 41) and (8192, 41);
   4. the main path: solve_batch on the bench distribution (plane x3, K=41,
      goals 0.3..0.8, max_iters=3, rescue_iters=12) at B=1024 and B=8192,
-     with the kernel's launch counter, convergence and the 1 kHz table;
+     with both solver kernels' launch counters (one launch of each per LM
+     iteration), convergence and the 1 kHz table;
   5. the port on CUDA against the port on CPU at B=64, K=41;
   6. physics playback, through the tick kernel: (a) the library quick start
      (plan, solve, sample, 500 warm-up ticks, 1 kHz playback) on the card;
@@ -37,8 +44,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      2,501-tick tables, both on the card, with ms per tick of each; the
      kernel on the card against the plain loop on the CPU over 6d's window;
      the kernel's device launches per playback, playback_recorded and
-     stance_warmup call, counted in a torch.profiler trace of each (in a
-     process of its own: `python3 chip_smoke.py --device-launches`); the
+     stance_warmup call, and the assembly kernel's per solve_batch call,
+     counted in a torch.profiler trace of each (in a process of its own:
+     `python3 chip_smoke.py --device-launches`); the
      kernel's bound, and its design's floor from the latencies of the
      operations on the chain's loop-carried cycles, probed on the card;
   7. planner: the solver-probed feasibility map of the pillar tile (one
@@ -105,6 +113,22 @@ def _synced(dev) -> float:
     return time.perf_counter()
 
 
+def _asm_launches() -> int:
+    """The assembly kernel's launches since its count was last set to 0."""
+    from qtos_torch.ops.assemble import assemble_kernel
+
+    return assemble_kernel.launches
+
+
+def _zero_solver_counts():
+    """Sets the BTD and assembly kernels' counts to 0: one LM iteration
+    launches each once."""
+    from qtos_torch.ops.assemble import assemble_kernel
+    from qtos_torch.ops.btd import btd_solve
+
+    btd_solve.launches = assemble_kernel.launches = 0
+
+
 def _zero_tick_counts():
     from qtos_torch.ops.tick import tick_hold, tick_scan
 
@@ -116,12 +140,17 @@ def count_device_launches() -> None:
     process of its own: one call each of `playback`, `playback_recorded` and
     `stance_warmup` on 8 solved trot windows (plane x3, K=41), each under
     `torch.profiler`, and one JSON line with the device launches of
-    `tick_kernel` in each call's trace and the trace's device events.  (In
+    `tick_kernel` in each call's trace and the trace's device events; and
+    one `solve_batch` call on those windows (the bench distribution at B=8),
+    with the device launches of `assemble_kernel` and `btd_kernel` in its
+    trace beside the wrappers' counts.  (In
     the smoke's own process, after phase 4's profile, later traces held no
     device events at all; a fresh process records them.)"""
     import torch
 
     from qtos_torch.control.loop import gait_control_params, playback, playback_recorded, stance_warmup, state_from_row
+    from qtos_torch.ops.assemble import assemble_kernel
+    from qtos_torch.ops.btd import btd_solve
     from qtos_torch.ops.tick import tick_hold, tick_scan
     from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve_batch
     from qtos_torch.terrain import make_terrain
@@ -129,7 +158,8 @@ def count_device_launches() -> None:
     dev = torch.device("cuda")
     terrain = make_terrain(["plane"] * 3)
     specs = default_spec(terrain, goal_xy=(torch.linspace(0.3, 0.8, 8, device=dev), 0.0), K=41)
-    tables = sample_trajectory(solve_batch(specs, terrain, SolverConfig(max_iters=3, rescue_iters=12)).x, specs)[0]
+    cfg = SolverConfig(max_iters=3, rescue_iters=12)
+    tables = sample_trajectory(solve_batch(specs, terrain, cfg).x, specs)[0]
     tables = tables.contiguous()
     params = gait_control_params("trot")
     s0 = stance_warmup(state_from_row(tables[:, 0], terrain, params), terrain, params, 100)
@@ -148,6 +178,15 @@ def count_device_launches() -> None:
         names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         out[name] = dict(device=sum("tick_kernel" in n for n in names), events=len(names),
                          wrapper=tick_scan.launches + tick_hold.launches)
+    btd_solve.launches = assemble_kernel.launches = 0
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        solve_batch(specs, terrain, cfg)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["solve_batch"] = dict(device=sum("assemble_kernel" in n for n in names), events=len(names),
+                              wrapper=assemble_kernel.launches, btd_device=sum("btd_kernel" in n for n in names),
+                              btd_wrapper=btd_solve.launches)
     print(json.dumps(out), flush=True)
 
 
@@ -192,11 +231,12 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
     t0 = time.time()
     terr2 = make_terrain(["plane", "plane"], device=dev)
     spec = default_spec(terr2, goal_xy=(0.5, 0.0), K=33, device=dev)
-    btd_solve.launches = 0
+    _zero_solver_counts()
     res = solve(spec, terr2, SolverConfig(max_iters=30))
-    launches, iters = btd_solve.launches, int(res.iters.max())
-    if dev.type == "cuda" and launches < iters:      # main() always passes the card
-        fail(f"phase 6a: the quick start's solve launched the kernel {launches} times in {iters} iterations")
+    launches, iters, asm_launches = btd_solve.launches, int(res.iters.max()), _asm_launches()
+    if dev.type == "cuda" and not launches == asm_launches >= iters:      # main() always passes the card
+        fail(f"phase 6a: the quick start's solve launched the BTD and assembly kernels {launches} and "
+             f"{asm_launches} times in {iters} iterations")
     status = int(res.status)
     table, _ = sample_trajectory(res.x, spec)
     final, m, warm_s, play_s, _ = episode(table, terr2)
@@ -205,7 +245,8 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
     plan_end = table[-1, 1:4].cpu()
     pos = final.pos.cpu()
     err_s = float(m.avg_com_err_per_s)
-    line = (f"# phase 6a quick start (K=33, {T1} rows): status {status}, btd launches {launches} in "
+    line = (f"# phase 6a quick start (K=33, {T1} rows): status {status}, btd and assembly launches {launches} and "
+            f"{asm_launches} in "
             f"{iters} iterations, avg_com_err_per_s {err_s:.2f}, "
             f"final pos ({pos[0]:.4f}, {pos[1]:.4f}, {pos[2]:.4f}) vs plan end "
             f"({plan_end[0]:.4f}, {plan_end[1]:.4f}, {plan_end[2]:.4f}); warm-up {warmup} ticks "
@@ -453,7 +494,7 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
     # of one call each (in a process of its own: `count_device_launches`):
     # the wrapper's count says how often it launched, the trace what the
     # card ran.
-    device_launches = None
+    device_launches = asm_device_launches = None
     if dev.type == "cuda":
         t1 = time.time()
         child = subprocess.run([sys.executable, os.path.abspath(__file__), "--device-launches"],
@@ -461,6 +502,14 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
         if child.returncode != 0:
             fail(f"phase 6e: the device-launch count failed:\n{child.stderr[-3000:]}")
         counted = json.loads(child.stdout.strip().splitlines()[-1])
+        solve = counted.pop("solve_batch")
+        line = (f"# phase 6e device launches of assemble_kernel in one solve_batch call (bench distribution, B=8, "
+                f"torch.profiler trace, the same process): {solve['device']} (wrapper {solve['wrapper']}), "
+                f"btd_kernel {solve['btd_device']} (wrapper {solve['btd_wrapper']}), {solve['events']} device events")
+        if not (solve["device"] == solve["wrapper"] == solve["btd_device"] == solve["btd_wrapper"] >= 3):
+            fail(line + " (gate: one assembly launch per LM iteration, on the device and by the wrapper's count)")
+        log(line)
+        asm_device_launches = solve["device"]
         line = (f"# phase 6e device launches of tick_kernel per call (torch.profiler trace of one call each, B=8, "
                 f"a process of its own, {time.time() - t1:.1f} s): "
                 + ", ".join(f"{k} {v['device']} (wrapper {v['wrapper']}, {v['events']} device events)"
@@ -517,7 +566,8 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
                 library_ms=None, max_abs_err=max_err, ms_b1=out[1]["ms"], plain_ms_b1=out[1]["plain_ms"],
                 floor_ms=floor_ms, floor_cycles_per_tick=floor_cycles, floor_cycle=cycle,
                 device_launches_per_call=None if device_launches is None else device_launches["playback"],
-                device_launches_per_hold=None if device_launches is None else device_launches["stance_warmup"])
+                device_launches_per_hold=None if device_launches is None else device_launches["stance_warmup"],
+                asm_device_launches_per_solve=asm_device_launches)
 
 
 def phase_planner(dev, card) -> None:
@@ -535,11 +585,11 @@ def phase_planner(dev, card) -> None:
     tiles, goal, K, max_iters = ["feasibility", "plane"], (2.6, 0.0), 25, 25
     terrain = make_terrain(tiles, device=dev)
     cfg = SolverConfig(max_iters=max_iters, tol=6e-3)
-    btd_solve.launches = 0
+    _zero_solver_counts()
     t1 = _synced(dev)
     fmap = feasibility_map(terrain, cfg=cfg, K=K)
     probe_s = _synced(dev) - t1
-    launches = btd_solve.launches
+    launches, asm_launches = btd_solve.launches, _asm_launches()
 
     # The probe's windows once more, for the counts the map does not carry.
     _, specs = probe_specs(terrain, K=K)
@@ -555,9 +605,11 @@ def phase_planner(dev, card) -> None:
     route = astar(blocked, (H // 2, 0), (H // 2, W - 2))
     line = (f"# phase 7 feasibility probe {'+'.join(tiles)} (K={K}, max_iters={max_iters}): {n_pairs} pairs, "
             f"{n_failed} failed the obstacle gate, {n_unconverged} unconverged at tol {cfg.tol}, "
-            f"btd launches {launches}, {probe_s:.3f} s on {card}; {int(blocked.sum())}/{blocked.size} cells blocked")
-    if dev.type == "cuda" and launches < max_iters:
-        fail(line + f": the probe launched the kernel {launches} times, < max_iters {max_iters}")
+            f"btd launches {launches}, assembly launches {asm_launches}, {probe_s:.3f} s on {card}; "
+            f"{int(blocked.sum())}/{blocked.size} cells blocked")
+    if dev.type == "cuda" and not launches == asm_launches >= max_iters:
+        fail(line + f": the probe launched the kernels {launches} and {asm_launches} times, not equal and "
+                    f">= max_iters {max_iters}")
     if not blocked[grid > 0.1].all():
         fail(line + ": a pillar cell is not blocked")
     if blocked.all(axis=0).any():
@@ -626,30 +678,31 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
                                 torch.zeros(k, device=dev), torch.zeros(k, device=dev)], dim=-1)
     gyaws = torch.zeros(k, device=dev)
     for _ in range(2):                        # the second call is the timed one
-        btd_solve.launches = 0
+        _zero_solver_counts()
         t1 = _synced(dev)
         res, tables, _ = plan_windows_batch(rows, goals, gyaws, terrain, cfg)
         replan_s = _synced(dev) - t1
-    replan_launches = btd_solve.launches
+    replan_launches, replan_asm = btd_solve.launches, _asm_launches()
     n_conv = int((res.status == 0).sum())
     line = (f"# phase 8a replan (plan_windows_batch, B={k}, K={cfg.K}, max_iters={cfg.solver.max_iters}): "
-            f"{replan_s * 1e3:.1f} ms on {card}, btd launches {replan_launches}, {n_conv}/{k} converged, "
+            f"{replan_s * 1e3:.1f} ms on {card}, btd launches {replan_launches}, assembly launches {replan_asm}, "
+            f"{n_conv}/{k} converged, "
             f"tables {tuple(tables.shape)}; the kernel against its plain version at "
             f"({k}, {cfg.K}, 36) is phase 3's row of that shape")
-    if on_card and replan_launches != cfg.solver.max_iters:
-        fail(line + f": expected {cfg.solver.max_iters} launches")
+    if on_card and not replan_launches == replan_asm == cfg.solver.max_iters:
+        fail(line + f": expected {cfg.solver.max_iters} launches of each")
     if not (n_conv >= 1 and bool(torch.isfinite(tables).all())):
         fail(line)
     log(line)
 
     # 8b: the preset, start to goal
     runner = bundle.runner
-    btd_solve.launches = 0
+    _zero_solver_counts()
     _zero_tick_counts()
     t1 = _synced(dev)
     rep = runner.run(verbose=True)
     wall = _synced(dev) - t1
-    launches = btd_solve.launches
+    launches, runner_asm = btd_solve.launches, _asm_launches()
     tick_launches = _tick_counts()
     chunks = len(runner._st["com_errs"])
     want = cfg.solver.max_iters * rep.windows + cfg.escalate_iters * runner.escalations
@@ -662,7 +715,8 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
             f"escalations {runner.escalations}, final pos ({rep.final_pos[0]:.4f}, {rep.final_pos[1]:.4f}, "
             f"{rep.final_pos[2]:.4f}), avg_com_err_per_s {rep.avg_com_err_per_s:.2f}, "
             f"btd launches {launches} (= {cfg.solver.max_iters} x {rep.windows} solves"
-            f"{' + escalations' if runner.escalations else ''}), tick kernel launches (playback, hold) "
+            f"{' + escalations' if runner.escalations else ''}), assembly launches {runner_asm}, "
+            f"tick kernel launches (playback, hold) "
             f"{tick_launches} for {chunks} executed chunks and 1 warm-up; wall {wall:.2f} s on {card} = "
             f"{wall / loops:.2f} s per window over {loops} windows of the loop, of which replans "
             f"{plan_s:.2f} s in all (8a's {replan_s * 1e3:.1f} ms each) and warm-up + execution the rest: "
@@ -677,7 +731,7 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     if goal_xy is None:
         ok = ok and rep.final_pos[0] > 1.9
     if on_card:
-        ok = ok and launches == want and tick_launches == (chunks, 1)
+        ok = ok and launches == want == runner_asm and tick_launches == (chunks, 1)
     if not ok:
         fail(line)
     log(line)
@@ -727,11 +781,13 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     else:
         log("# phase 8d real-time walk: on the card only")
     log(f"# phase 8 done in {time.time() - t0:.1f} s")
-    return {"replan": replan_launches, "runner": launches, "tick_runner": tick_launches}
+    return {"replan": replan_launches, "runner": launches, "tick_runner": tick_launches,
+            "asm_replan": replan_asm, "asm_runner": runner_asm}
 
 
 def phase_sharded(dev, card, B=1024, two_rank_batches=(5, 1023)) -> int:
-    """Phase 9.  Returns the kernel's launches in the sharded solve.  On the
+    """Phase 9.  Returns the BTD and assembly kernels' launches in the
+    sharded solve.  On the
     CPU (a rehearsal, at smaller batches) the backend is gloo and the
     two-rank run always goes."""
     import numpy as np
@@ -756,9 +812,9 @@ def phase_sharded(dev, card, B=1024, two_rank_batches=(5, 1023)) -> int:
     try:
         mesh = global_scenario_mesh(device=dev)
         backend = dist.get_backend()
-        btd_solve.launches = 0
+        _zero_solver_counts()
         sharded = solve_batch_sharded(specs, terrain, cfg, mesh)
-        launches = btd_solve.launches
+        launches, asm_launches = btd_solve.launches, _asm_launches()
         x_loc, st_loc, st_all = solve_batch_collective(specs, terrain, cfg, mesh)
     finally:
         dist.destroy_process_group()
@@ -766,9 +822,10 @@ def phase_sharded(dev, card, B=1024, two_rank_batches=(5, 1023)) -> int:
     gathered = torch.equal(st_all, st_loc) and torch.equal(st_all, plain.status) and torch.equal(x_loc, plain.x)
     line = (f"# phase 9 solve_batch_sharded ({backend}, world size {mesh.world}, B={B}, K={K}) on {card}: "
             f"x equal to solve_batch's bit for bit {same_x}, statuses {same_st}; gathered statuses equal the "
-            f"local ones {gathered}; {int((sharded.status == 0).sum())}/{B} converged; btd launches {launches}")
+            f"local ones {gathered}; {int((sharded.status == 0).sum())}/{B} converged; btd launches {launches}, "
+            f"assembly launches {asm_launches}")
     if not (backend == ("nccl" if on_card else "gloo") and same_x and same_st and gathered
-            and (launches >= cfg.max_iters or not on_card)):
+            and ((launches == asm_launches >= cfg.max_iters) or not on_card)):
         fail(line)
     log(line)
     if not on_card or torch.cuda.device_count() >= 2:
@@ -782,7 +839,7 @@ def phase_sharded(dev, card, B=1024, two_rank_batches=(5, 1023)) -> int:
     else:
         log("# phase 9 two ranks: skipped, fewer than two cards")
     log(f"# phase 9 done in {time.time() - t0:.1f} s")
-    return launches
+    return {"btd": launches, "assemble": asm_launches}
 
 
 def main() -> None:
@@ -793,6 +850,7 @@ def main() -> None:
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
 
     import qtos_torch  # noqa: F401  (sets TF32 off)
+    from qtos_torch.ops import assemble as asm_mod
     from qtos_torch.ops import btd as btd_mod
     from qtos_torch.ops import tick as tick_mod
     from qtos_torch.ops.btd import btd_solve
@@ -802,7 +860,8 @@ def main() -> None:
     from qtos_torch.solver.spec import index_spec
     from qtos_torch.solver.transcription import initial_guess, knot_aux
     from qtos_torch.terrain import make_terrain
-    from qtos_torch.tools import profile_solve, tick_floor
+    from qtos_torch.terrain.heightfield import slope_terrain
+    from qtos_torch.tools import check_assemble, profile_solve, tick_floor
 
     dev = torch.device("cuda")
 
@@ -823,8 +882,9 @@ def main() -> None:
     # One nvcc for each source, all at once; each prints its ptxas report.
     t0 = time.time()
     report = io.StringIO()
-    with contextlib.redirect_stdout(report), concurrent.futures.ThreadPoolExecutor(3) as pool:
-        builds = [pool.submit(fn, verbose=True) for fn in (btd_mod.build, tick_mod.build, tick_floor.build_probe)]
+    with contextlib.redirect_stdout(report), concurrent.futures.ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(fn, verbose=True)
+                  for fn in (btd_mod.build, tick_mod.build, asm_mod.build, tick_floor.build_probe)]
         paths = [b.result() for b in builds]
     report = report.getvalue()
     log(report.rstrip())
@@ -835,9 +895,10 @@ def main() -> None:
         return (int(m.group(2)), int(m.group(1))) if m else (None, None)
 
     (regs, _), (tick_regs, tick_spills) = registers("btd_kernel"), registers("tick_kernel")
+    asm_regs, asm_spills = registers("assemble_kernel")
     log(f"# phase 2 build: {', '.join(paths)} in {time.time() - t0:.1f} s; registers per thread: "
         f"btd_kernel {regs}, tick_kernel {tick_regs} with {tick_spills} B spill stores (before the tick "
-        f"kernel's redesign: {TICK_BEFORE})")
+        f"kernel's redesign: {TICK_BEFORE}), assemble_kernel {asm_regs} with {asm_spills} B spill stores")
 
     # ---- 3. kernel vs plain ----------------------------------------------
     def event_ms(fn, reps):
@@ -973,9 +1034,40 @@ def main() -> None:
     torch.cuda.empty_cache()
     log(f"# phase 3 done in {time.time() - t0:.1f} s")
 
+    # ---- 3b. assembly kernel vs plain --------------------------------------
+    # Every shape a path gives the kernel, on the bench distribution's first
+    # iterate and on a perturbed iterate over step terrain with every hinge
+    # family active; times at (4, 41), (1024, 41) and (8192, 41).
+    t0 = time.time()
+    asm_rows = []
+    for B, K in check_assemble.SHAPES:
+        for iterate in ("bench", "steps"):
+            r = check_assemble.compare(iterate, B, K, dev,
+                                       timed=iterate == "bench" and (B, K) in check_assemble.TIMED)
+            line = f"# phase 3b {check_assemble.describe(r)} on {card}"
+            if not r["ok"]:
+                fail(line + f" (gates: within atol=rtol={check_assemble.ATOL}, finite, two launches bit for bit)")
+            log(line)
+            asm_rows.append(r)
+    timed = {r["B"]: r for r in asm_rows if "ms" in r}
+    share = max(max(r["tolerance_shares"].values()) for r in asm_rows)
+    gate = max(max(r["gate_shares"].values()) for r in asm_rows)
+    log(f"# phase 3b assemble_kernel on {card}: {asm_regs} registers, {asm_spills} B spill stores; ms per launch "
+        + ", ".join(f"(B={B}, K=41) {r['ms']:.3f} (bound {r['bound_ms']:.4f} by {r['bound_by']}, "
+                    f"{r['ms'] / r['bound_ms']:.1f}x; plain {r['plain_ms']:.3f})" for B, r in sorted(timed.items()))
+        + f"; the largest share of the gate {gate:.3f} (of atol=rtol={check_assemble.ATOL} alone {share:.3f}: entries "
+        f"whose terms cancel, on the perturbed iterate) (phase 3b done in {time.time() - t0:.1f} s)")
+    asm_row = dict(ms=timed[8192]["ms"], plain_ms=timed[8192]["plain_ms"], bound_ms=timed[8192]["bound_ms"],
+                   bound_by=timed[8192]["bound_by"], library_ms=None,
+                   max_abs_err=max(r["max_abs_err"] for r in asm_rows), max_gate_share=gate,
+                   max_plain_tolerance_share=share,
+                   ms_b1024=timed[1024]["ms"], plain_ms_b1024=timed[1024]["plain_ms"],
+                   bound_ms_b1024=timed[1024]["bound_ms"], ms_b4=timed[4]["ms"], plain_ms_b4=timed[4]["plain_ms"],
+                   bound_ms_b4=timed[4]["bound_ms"])
+
     # ---- 4. main path ----------------------------------------------------
     t0 = time.time()
-    main_launches = None
+    main_launches = main_asm_launches = None
     played = None
     for B in (1024, 8192):
         goals = torch.linspace(0.3, 0.8, B, device=dev)
@@ -983,18 +1075,19 @@ def main() -> None:
         res = solve_batch(specs, terrain, cfg)               # warm-up
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        btd_solve.launches = 0
+        _zero_solver_counts()
         t1 = time.perf_counter()
         res = solve_batch(specs, terrain, cfg)
         n_conv = int((res.status == 0).sum())               # host read ends the timing
         dt = time.perf_counter() - t1
-        launches = btd_solve.launches
+        launches, asm_launches = btd_solve.launches, _asm_launches()
         peak = torch.cuda.max_memory_allocated() / 2**30
         log(f"# phase 4 B={B}: {dt:.3f} s -> {B / dt:.1f} solves/s ({n_conv}/{B} converged), "
-            f"btd launches {launches}, max violation {float(res.max_violation.max()):.3e}, "
-            f"peak memory {peak:.2f} GiB on {card}")
-        if launches < cfg.max_iters:
-            fail(f"the main path launched the kernel {launches} times, < max_iters {cfg.max_iters}")
+            f"btd launches {launches}, assembly launches {asm_launches}, "
+            f"max violation {float(res.max_violation.max()):.3e}, peak memory {peak:.2f} GiB on {card}")
+        if not launches == asm_launches >= cfg.max_iters:
+            fail(f"the main path launched the BTD and assembly kernels {launches} and {asm_launches} times, "
+                 f"not one each per LM iteration (>= max_iters {cfg.max_iters})")
         if n_conv != B:
             fail(f"{B - n_conv}/{B} scenarios did not converge")
         if not bool(torch.isfinite(res.x).all()):
@@ -1002,19 +1095,18 @@ def main() -> None:
         table, contact = sample_trajectory(res.x[0], index_spec(specs, 0))
         if tuple(table.shape) != (2501, 37) or not bool(torch.isfinite(table).all()):
             fail(f"sample_trajectory gave {tuple(table.shape)}, finite={bool(torch.isfinite(table).all())}")
-        main_launches = launches
+        main_launches, main_asm_launches = launches, asm_launches
         if B == 1024:
             played = (res.x[::4].clone(), index_spec(specs, slice(None, None, 4)))
 
     # where the time goes at B=8192: one assembly and one solve
     x0 = initial_guess(specs, terrain, cfg)
-    aux = knot_aux(specs, terrain, cfg)
-    asm_ms = event_ms(lambda: assemble(x0, specs, terrain, cfg, aux), 3)
-    Dm, Lm, gm, _ = assemble(x0, specs, terrain, cfg, aux)
-    before = btd_solve.launches
+    aux, slope = knot_aux(specs, terrain, cfg), slope_terrain(terrain, cfg.slope_probe_d)
+    asm_ms = event_ms(lambda: assemble(x0, specs, terrain, cfg, aux, slope), 3)
+    Dm, Lm, gm, _ = assemble(x0, specs, terrain, cfg, aux, slope)
     solve_ms = event_ms(lambda: btd_solve(Dm, Lm, gm), 3)
-    btd_solve.launches = before
-    log(f"# phase 4 breakdown B=8192: assemble {asm_ms:.3f} ms, btd_solve {solve_ms:.3f} ms per iteration")
+    log(f"# phase 4 breakdown B=8192: assemble (the kernel) {asm_ms:.3f} ms, btd_solve {solve_ms:.3f} ms per "
+        f"iteration")
     del Dm, Lm, gm
     torch.cuda.empty_cache()
     t1 = time.time()
@@ -1060,10 +1152,26 @@ def main() -> None:
         # the later paths' counts, each read after its own run
         launches_replan=runner_launches["replan"],
         launches_runner=runner_launches["runner"],
-        launches_sharded=sharded_launches,
+        launches_sharded=sharded_launches["btd"],
         max_abs_err=max_err_all,
         max_err=max_err_all,
         **kernel_row,
+    )
+    asm_row = dict(
+        name="assemble",
+        route="cuda",
+        source="qtos_torch/csrc/assemble.cu",
+        replaces="qtos_tpu/solver/assemble_lanes.py:610 (assemble_lanes, run by _solve_batch_lanes in "
+                 "qtos_tpu/solver/solve.py:209); no Pallas kernel: XLA fuses it",
+        # phase 4's B=8192 solve: one launch per LM iteration
+        launches=main_asm_launches,
+        launches_replan=runner_launches["asm_replan"],
+        launches_runner=runner_launches["asm_runner"],
+        launches_sharded=sharded_launches["assemble"],
+        device_launches_per_solve=tick_row.pop("asm_device_launches_per_solve"),
+        registers=asm_regs,
+        spill_stores_bytes=asm_spills,
+        **asm_row,
     )
     scan_launches, hold_launches = runner_launches["tick_runner"]
     tick_row = dict(
@@ -1081,7 +1189,7 @@ def main() -> None:
         spill_stores_bytes=tick_spills,
         **tick_row,
     )
-    print(json.dumps({"kernels": [row, tick_row]}), flush=True)
+    print(json.dumps({"kernels": [row, tick_row, asm_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -22,7 +22,7 @@ from qtos_torch.ops.rotations import euler_rate_matrix_inv, omega_to_euler_rate
 from qtos_torch.solver.jacobians import euler_rate_jac, rot_derivs, wdot_and_derivs
 from qtos_torch.solver.spec import FORCE_SCALE, IDX_F, ProblemSpec, SolverConfig, unpack_state
 from qtos_torch.solver.transcription import GRAVITY_Z, KnotAux
-from qtos_torch.terrain.heightfield import Terrain, grad_at, height_at, slope_grad_at
+from qtos_torch.terrain.heightfield import Terrain, grad_at, height_at, slope_terrain
 
 _G_R, _G_TH, _G_V, _G_W = 0, 1, 2, 3  # block-group ids; p_i = 4+i, f_i = 8+i
 
@@ -79,9 +79,11 @@ def _eye3(like):
     return torch.eye(3, dtype=like.dtype, device=like.device)
 
 
-def knot_normal(x, aux: KnotAux, spec: ProblemSpec, terrain: Terrain, cfg: SolverConfig):
+def knot_normal(x, aux: KnotAux, spec: ProblemSpec, terrain: Terrain, cfg: SolverConfig,
+                slope: Terrain | None = None):
     """Knot-family normal equations: x (B, K, NV) -> D (B, K, NV, NV),
-    g (B, K, NV), sq (B, K)."""
+    g (B, K, NV), sq (B, K).  `slope` is `slope_terrain(terrain,
+    cfg.slope_probe_d)`, built here when not given."""
     W = cfg.weights
     s = unpack_state(x)
     r, th, v, w, p = s["r"], s["th"], s["v"], s["w"], s["p"]
@@ -180,7 +182,10 @@ def knot_normal(x, aux: KnotAux, spec: ProblemSpec, terrain: Terrain, cfg: Solve
     g_p_rom = torch.einsum("...im,...am->...ia", gc, R)                # (..., 4, 3)
 
     # --- foothold slope hinge: rank-1 on each p_i (xy only) ----------------
-    sl, slx, sly = slope_grad_at(terrain, p[..., 0], p[..., 1], cfg.slope_probe_d)
+    if slope is None:
+        slope = slope_terrain(terrain, cfg.slope_probe_d)
+    sl = height_at(slope, p[..., 0], p[..., 1])                        # slope_grad_at's lookups
+    slx, sly = grad_at(slope, p[..., 0], p[..., 1])
     w_sl = c * (1.0 - aux.first_stance) * W.slope
     m_sl = (sl - cfg.slope_margin > 0.0).to(dt_) * w_sl
     res_sl = torch.clamp(sl - cfg.slope_margin, min=0.0) * w_sl

@@ -2,7 +2,7 @@
 `qtos_tpu.solver.solve`).
 
 Per iteration: batch-major assembly of the block-tridiagonal normal
-equations (`solver.assemble`) -> diagonal damping -> one batched BTD solve
+equations (`solver.assemble`, the CUDA kernel on the card) -> diagonal damping -> one batched BTD solve
 (`ops.btd.btd_solve`, the CUDA kernel on the card) -> per-scenario
 accept/reject.  A fixed iteration count keeps every scenario on the same
 instruction stream.
@@ -18,7 +18,7 @@ from qtos_torch.ops.btd import btd_solve
 from qtos_torch.solver.assemble import assemble
 from qtos_torch.solver.spec import NV, ProblemSpec, SolverConfig, index_spec, map_tensors
 from qtos_torch.solver.transcription import initial_guess, knot_aux, max_violation, violations
-from qtos_torch.terrain.heightfield import Terrain
+from qtos_torch.terrain.heightfield import Terrain, slope_terrain
 
 STATUS_CONVERGED = 0
 STATUS_MAX_ITERS = 1
@@ -50,6 +50,7 @@ def _solve_pass(specs: ProblemSpec, terrain: Terrain, cfg: SolverConfig,
     B, K, _ = x0.shape
     dev, dt_ = x0.device, x0.dtype
     aux = knot_aux(specs, terrain, cfg)
+    slope = slope_terrain(terrain, cfg.slope_probe_d)   # the slope grid, once per pass
 
     # One residual/Jacobian evaluation per iteration: the candidate step is
     # evaluated by the NEXT iteration's assembly; on rejection the solver
@@ -61,7 +62,7 @@ def _solve_pass(specs: ProblemSpec, terrain: Terrain, cfg: SolverConfig,
     merit_b = torch.full((B,), float("inf"), dtype=dt_, device=dev)
     lm = torch.full((B,), cfg.lm_init, dtype=dt_, device=dev)
     for _ in range(cfg.max_iters):
-        D, L, g, merit = assemble(x, specs, terrain, cfg, aux)
+        D, L, g, merit = assemble(x, specs, terrain, cfg, aux, slope)
         accept = merit < merit_b                                       # (B,)
         a3, a4 = accept[:, None, None], accept[:, None, None, None]
         x_best = torch.where(a3, x, x_best)

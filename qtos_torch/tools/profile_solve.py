@@ -9,12 +9,14 @@ For each size it prints
 
   - the 15 device kernels with the most device time, with their launch
     counts;
-  - the BTD kernel's share of the device time (`btd_kernel`, launched
-    through ctypes, so it has no aten operation of its own);
+  - the BTD kernel's and the assembly kernel's shares of the device time
+    (`btd_kernel`, `assemble_kernel`, launched through ctypes, so they have
+    no aten operation of their own);
   - assembly's share: the device time of the kernels that the profiled
     call's own `assemble` calls launched (each call marked with a
-    `record_function` range, rescue passes on their subsets included), over
-    the call's device busy time;
+    `record_function` range, rescue passes on their subsets included) and of
+    `assemble_kernel`, which the trace does not attribute to the range (it
+    is launched through ctypes), over the call's device busy time;
   - the device's idle share over the profiled call: 1 - (the union of its
     device intervals) / (its span in the trace, from the host's entry into
     `solve_batch` to the end of its last device operation).  The profiler's
@@ -153,6 +155,7 @@ def profile_once(B: int, K: int = 41, device=None) -> dict:
         counts[e.name] += 1
     device_us = sum(by_name.values())
     btd_us = sum(t for name, t in by_name.items() if "btd_kernel" in name)
+    asm_us = sum(t for name, t in by_name.items() if "assemble_kernel" in name)
     out.update(
         top_kernels=[dict(name=name, ms=t / 1e3, count=counts[name], share=t / device_us)
                      for name, t in by_name.most_common(15)],
@@ -160,11 +163,13 @@ def profile_once(B: int, K: int = 41, device=None) -> dict:
         span_ms=prof["span_us"] / 1e3,
         btd_share=btd_us / device_us,
         btd_launches=sum(c for name, c in counts.items() if "btd_kernel" in name),
+        assemble_kernel_share=asm_us / device_us,
+        assemble_kernel_launches=sum(c for name, c in counts.items() if "assemble_kernel" in name),
         assemble_calls=prof["assemble_calls"],
         assembled_rows=prof["assembled_rows"],
-        assembly_ms=prof["assembly_us"] / 1e3,
-        assembly_share=(_share(prof["assembly_us"], device_us, "assembly's share") if prof["assembly_us"] > 0
-                        else NOT_MEASURED),
+        assembly_ms=(prof["assembly_us"] + asm_us) / 1e3,
+        assembly_share=(_share(prof["assembly_us"] + asm_us, device_us, "assembly's share")
+                        if prof["assembly_us"] + asm_us > 0 else NOT_MEASURED),
         idle_share=1.0 - _share(busy_us, prof["span_us"], "the busy share of the span"),
         kernels_launched=len(kernels),
     )
@@ -189,7 +194,9 @@ def report(out: dict) -> None:
           f"{out['span_ms']:.3f} ms span ({out['wall_s'] * 1e3:.3f} ms without the profiler) in "
           f"{out['kernels_launched']} kernels and copies; device idle {out['idle_share']:.2%} of the span; "
           f"BTD kernel {out['btd_share']:.2%} of device time ({out['btd_launches']} launches); assembly {asm} "
-          f"in {out['assemble_calls']} assemble calls over {out['assembled_rows']} scenario-rows", flush=True)
+          f"in {out['assemble_calls']} assemble calls over {out['assembled_rows']} scenario-rows, of which the "
+          f"assembly kernel {out['assemble_kernel_share']:.2%} of device time "
+          f"({out['assemble_kernel_launches']} launches)", flush=True)
 
 
 def main(argv=None) -> int:

@@ -1,5 +1,5 @@
-"""Tests of qtos_torch that need a CUDA card: the BTD kernel and the tick
-kernel against their plain versions, the solver through the kernel, the
+"""Tests of qtos_torch that need a CUDA card: the BTD, tick and assembly
+kernels against their plain versions, the solver through the kernel, the
 simulator and control loop on the card against the CPU, and the runner's
 real-time mode.  They skip without a card.
 
@@ -417,3 +417,87 @@ def test_sharded_solve_over_two_cards():
         for r in outs:
             np.testing.assert_array_equal(r[i]["status_gathered"], local)
             assert r[i]["x"].shape == (B, 13, 36)
+
+
+# ---- the assembly kernel (qtos_torch/csrc/assemble.cu) -------------------------
+# Held to the plain version on the card at atol=rtol=2e-4, tests/test_torch_assemble.py's
+# tolerance, plus 1e-5 of each entry's rounding scale (the sum of its terms'
+# magnitudes, qtos_torch/tools/check_assemble.py), at the shapes the paths give it: the quick start (1, 33), a replan
+# (4, 41), the feasibility probe (20, 25), the card-vs-CPU solve (64, 41) and
+# the bench batch (8192, 41); on the bench distribution's first iterate and on
+# a perturbed one over step terrain with every hinge family active.
+
+
+@pytest.mark.parametrize("kind", ["bench", "steps"])
+@pytest.mark.parametrize("B,K", [(1, 33), (4, 41), (20, 25), (64, 41), (8192, 41)])
+def test_assemble_kernel_matches_plain(cuda, kind, B, K):
+    from qtos_torch.tools import check_assemble
+
+    row = check_assemble.compare(kind, B, K, cuda)
+    assert row["finite"] and row["bitwise_repeatable"], row
+    assert max(row["gate_shares"].values()) <= 1.0, row
+
+
+def test_assemble_kernel_is_repeatable(cuda):
+    """Two launches on one input agree bit for bit (no atomics, fixed order)."""
+    from qtos_torch.ops.assemble import assemble_kernel
+    from qtos_torch.tools import check_assemble
+
+    p = check_assemble.problem("steps", 64, 41, cuda)
+    args = (p["x"], p["specs"], p["terrain"], p["cfg"], p["aux"], p["slope"])
+    first, second = assemble_kernel(*args), assemble_kernel(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_assemble_launches_once_per_call(cuda):
+    """`assemble` on the card is one launch of the kernel; `solve_batch`
+    launches it once per LM iteration, as it launches the BTD kernel."""
+    from qtos_torch.ops.assemble import assemble_kernel
+    from qtos_torch.solver import solve_batch
+    from qtos_torch.solver.assemble import assemble
+    from qtos_torch.tools import check_assemble
+
+    p = check_assemble.problem("bench", 4, 41, cuda)
+    before = assemble_kernel.launches
+    assemble(p["x"], p["specs"], p["terrain"], p["cfg"])
+    assert assemble_kernel.launches == before + 1
+    terrain, specs, cfg = _bench_specs(cuda, 8)
+    assemble_kernel.launches = btd_solve.launches = 0
+    solve_batch(specs, terrain, cfg)
+    assert assemble_kernel.launches == btd_solve.launches >= cfg.max_iters
+
+
+def test_solve_batch_statuses_equal_the_plain_assembly_on_card(cuda, monkeypatch):
+    """The bench distribution at B=64 through the kernel and through the
+    plain assembly, both on the card: equal statuses, x within the solver
+    tolerance 5e-3 (phase 5's gate between card and CPU)."""
+    import importlib
+
+    from qtos_torch.solver import solve_batch
+    from qtos_torch.solver.assemble import assemble_plain
+
+    solve_mod = importlib.import_module("qtos_torch.solver.solve")
+    terrain, specs, cfg = _bench_specs(cuda, 64)
+    kern = solve_batch(specs, terrain, cfg)
+    monkeypatch.setattr(solve_mod, "assemble", assemble_plain)
+    plain = solve_batch(specs, terrain, cfg)
+    assert torch.equal(kern.status, plain.status)
+    torch.testing.assert_close(kern.x, plain.x, rtol=0, atol=5e-3)
+
+
+def test_assemble_kernel_rejects_bad_inputs(cuda):
+    from qtos_torch.ops.assemble import assemble_kernel
+    from qtos_torch.solver.spec import map_tensors
+    from qtos_torch.tools import check_assemble
+
+    p = check_assemble.problem("bench", 4, 41, cuda)
+    rest = (p["specs"], p["terrain"], p["cfg"], p["aux"], p["slope"])
+    with pytest.raises(ValueError, match="contiguous x"):
+        assemble_kernel(p["x"].transpose(0, 1).contiguous().transpose(0, 1), *rest)
+    with pytest.raises(ValueError, match="B, K, 36"):
+        assemble_kernel(p["x"][..., :35].contiguous(), *rest)
+    cpu_terrain = map_tensors(p["terrain"], lambda t: t.cpu())
+    with pytest.raises(ValueError, match="different devices"):
+        assemble_kernel(p["x"], p["specs"], cpu_terrain, p["cfg"], p["aux"], p["slope"])

@@ -28,6 +28,7 @@ PORT_MODULES = [
     "qtos_torch.device",
     "qtos_torch.entry",
     "qtos_torch.models.solo12",
+    "qtos_torch.ops.assemble",
     "qtos_torch.ops.batch_linalg",
     "qtos_torch.ops.btd",
     "qtos_torch.ops.rotations",
@@ -53,6 +54,7 @@ PORT_MODULES = [
     "qtos_torch.planner.astar",
     "qtos_torch.planner.global_planner",
     "qtos_torch.planner.feasibility",
+    "qtos_torch.tools.check_assemble",
     "qtos_torch.tools.check_tick",
     "qtos_torch.tools.compare_btd",
     "qtos_torch.tools.crossover",
