@@ -22,10 +22,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      memory per block and resident warps per SM;
   3b. the assembly kernel vs its plain version (tools/check_assemble.py) at
      every shape a path gives it ((1, 33), (4, 41), (20, 25), (64, 41),
-     (1024, 41), (8192, 41)) on the bench distribution's first iterate and
-     on a perturbed iterate over step terrain with every hinge family
-     active, two launches bit for bit; kernel, plain and bound ms at
-     (4, 41), (1024, 41) and (8192, 41);
+     (1024, 41), (8192, 41), (3, 13), (512, 13)) on the bench distribution's
+     first iterate and on a perturbed iterate over step terrain with every
+     hinge family active, two launches bit for bit; kernel, plain and bound
+     ms at (4, 41), (1024, 41) and (8192, 41), its design's floor
+     (tools/assemble_floor.py), registers, spills, shared memory and blocks
+     per SM, beside the first design's recorded numbers;
   4. the main path: solve_batch on the bench distribution (plane x3, K=41,
      goals 0.3..0.8, max_iters=3, rescue_iters=12) at B=1024 and B=8192,
      with both solver kernels' launch counters (one launch of each per LM
@@ -357,6 +359,11 @@ COMPARE_TICKS = 500
 # legs on lanes), as recorded on an H100 at 700 W: us per tick at B=1 and
 # B=256 over the smoke runs, registers and spill stores.
 TICK_BEFORE = "45.2-45.6 / 47.2-49.0 us per tick at B=1 / B=256, 255 registers, 132 B spill stores"
+# The assembly kernel's first design (one warp per knot), as recorded on an
+# H100 at 700 W in turns with its redesign: ms per launch at (8192, 41),
+# (1024, 41) and (4, 41) (launches on inputs packed once), registers and
+# spill stores.
+ASM_BEFORE = "9.25-9.31 / 1.17 / 0.16 ms at (8192, 41) / (1024, 41) / (4, 41), 128 registers, 0 B spill stores"
 
 
 def tick_ops_per_tick() -> int:
@@ -1040,10 +1047,10 @@ def main() -> None:
     # family active; times at (4, 41), (1024, 41) and (8192, 41).
     t0 = time.time()
     asm_rows = []
-    for B, K in check_assemble.SHAPES:
+    for shape in check_assemble.SHAPES:  # phase 4 goes on with this function's K
         for iterate in ("bench", "steps"):
-            r = check_assemble.compare(iterate, B, K, dev,
-                                       timed=iterate == "bench" and (B, K) in check_assemble.TIMED)
+            r = check_assemble.compare(iterate, *shape, dev,
+                                       timed=iterate == "bench" and shape in check_assemble.TIMED)
             line = f"# phase 3b {check_assemble.describe(r)} on {card}"
             if not r["ok"]:
                 fail(line + f" (gates: within atol=rtol={check_assemble.ATOL}, finite, two launches bit for bit)")
@@ -1052,18 +1059,28 @@ def main() -> None:
     timed = {r["B"]: r for r in asm_rows if "ms" in r}
     share = max(max(r["tolerance_shares"].values()) for r in asm_rows)
     gate = max(max(r["gate_shares"].values()) for r in asm_rows)
-    log(f"# phase 3b assemble_kernel on {card}: {asm_regs} registers, {asm_spills} B spill stores; ms per launch "
+    occ = check_assemble.occupancy(asm_mod._load(), 41)
+    log(f"# phase 3b assemble_kernel on {card}: {asm_regs} registers, {asm_spills} B spill stores, "
+        f"{occ['smem_bytes']} B shared memory per block and {occ['blocks_per_sm']} blocks per SM at K=41; ms per launch "
         + ", ".join(f"(B={B}, K=41) {r['ms']:.3f} (bound {r['bound_ms']:.4f} by {r['bound_by']}, "
-                    f"{r['ms'] / r['bound_ms']:.1f}x; plain {r['plain_ms']:.3f})" for B, r in sorted(timed.items()))
-        + f"; the largest share of the gate {gate:.3f} (of atol=rtol={check_assemble.ATOL} alone {share:.3f}: entries "
-        f"whose terms cancel, on the perturbed iterate) (phase 3b done in {time.time() - t0:.1f} s)")
-    asm_row = dict(ms=timed[8192]["ms"], plain_ms=timed[8192]["plain_ms"], bound_ms=timed[8192]["bound_ms"],
-                   bound_by=timed[8192]["bound_by"], library_ms=None,
+                    f"{r['ms'] / r['bound_ms']:.1f}x; this design's floor {r['floor_ms']:.4f} by {r['floor_by']}, "
+                    f"{r['ms'] / r['floor_ms']:.1f}x; the wrapper's whole call {r['call_ms']:.3f}; plain "
+                    f"{r['plain_ms']:.3f})" for B, r in sorted(timed.items()))
+        + f" (the first design: {ASM_BEFORE}); the largest share of the gate {gate:.3f} (of atol=rtol="
+        f"{check_assemble.ATOL} alone {share:.3f}: entries whose terms cancel, on the perturbed iterate) "
+        f"(phase 3b done in {time.time() - t0:.1f} s)")
+    asm_row = dict(ms=timed[8192]["ms"], call_ms=timed[8192]["call_ms"], plain_ms=timed[8192]["plain_ms"],
+                   bound_ms=timed[8192]["bound_ms"],
+                   bound_by=timed[8192]["bound_by"], floor_ms=timed[8192]["floor_ms"],
+                   floor_by=timed[8192]["floor_by"], library_ms=None,
                    max_abs_err=max(r["max_abs_err"] for r in asm_rows), max_gate_share=gate,
                    max_plain_tolerance_share=share,
                    ms_b1024=timed[1024]["ms"], plain_ms_b1024=timed[1024]["plain_ms"],
-                   bound_ms_b1024=timed[1024]["bound_ms"], ms_b4=timed[4]["ms"], plain_ms_b4=timed[4]["plain_ms"],
-                   bound_ms_b4=timed[4]["bound_ms"])
+                   bound_ms_b1024=timed[1024]["bound_ms"], floor_ms_b1024=timed[1024]["floor_ms"],
+                   ms_b4=timed[4]["ms"], call_ms_b4=timed[4]["call_ms"], plain_ms_b4=timed[4]["plain_ms"],
+                   bound_ms_b4=timed[4]["bound_ms"],
+                   floor_ms_b4=timed[4]["floor_ms"], smem_bytes=occ["smem_bytes"],
+                   blocks_per_sm=occ["blocks_per_sm"])
 
     # ---- 4. main path ----------------------------------------------------
     t0 = time.time()

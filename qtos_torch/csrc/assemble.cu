@@ -16,46 +16,68 @@
 //
 // What bounds it on an H100 is bytes: the outputs are 2,628 floats per knot
 // (D and L dense, zeros included).  At (8192, 41) D is 1.741 GB, L 1.699 GB,
-// g and x 0.048 GB each: ~3.54 GB, ~1.06 ms at 3.35 TB/s; ~0.44 GB, ~0.13 ms at
-// (1024, 41).  The arithmetic (~50 k multiply-adds per knot for the three
-// 12-row Gram products, a few thousand for the closed forms) is far below
-// the card's float32 rate at that size.
+// g and x 0.048 GB each: ~3.54 GB, ~1.067 ms at 3.35 TB/s; ~0.13 ms at
+// (1024, 41).  This design's own floor is its Gram products' work
+// (qtos_torch/tools/assemble_floor.py counts it from this source): per
+// knot 45 + 45 lower-triangle 4 x 4 tiles of Daa and Dbb, 81 of Lba and 2 x 9
+// four-entry pieces of g, 12 rows each: ~66 k float32 instructions (no fused
+// multiply-adds) and ~84 KB of shared-memory traffic, 0.66 ms and 0.84 ms
+// at (8192, 41) against 128 float32 lanes and 128 B of shared memory per
+// clock on each of the 132 SMs at 1.98 GHz.  Measured: 2.7 ms on an H100.
 //
-// Design (a first design that is right and simple).  One block per scenario,
-// `assemble_warps(K)` warps (7 for every K the solver uses: K=13..41 fit in
-// whole rounds), each warp walking knots k = warp, warp + warps, ...  Per knot
-// the warp keeps in shared memory the 36 x 37 tile of D_k (padded pitch), the
-// three 12 x 36 dynamics row blocks it needs (Wb of x_k for Dbb of interval
-// k-1, Wa of x_k for Daa and L of interval k, Wb of x_{k+1} for L), and the
-// knots x_{k-1}, x_k, x_{k+1}.  Every interval's rows are computed by both
-// knots that share it.  Four stages, a __syncwarp between them:
-//   0. all lanes: load the three knots, zero the tile;
-//   1. lanes 0-3: the knot family of foot 0-3 (terrain, clearance and
-//      no-penetration, swing force and friction, range of motion and
-//      posture, slope), its own blocks into the tile and its share of the
-//      blocks of r and th into the warp's scratch; lanes 8-11: the endpoint
-//      terms of x_k (as Wb and as Wa), x_{k+1} (as Wb) and x_{k-1}: euler
-//      rates, linear and angular accelerations, and their rows;
-//   2. lane 0: the blocks of r, th, v, w (the feet's shares summed in foot
-//      order, base clearance, init, goal) and the knot's squared sum; lanes
-//      1-2: the residuals and diagonal terms of intervals k-1 and k;
-//   3. all lanes: D_k = tile + Daa + Dbb, L_k and g_k, written whole (zeros
-//      included) by consecutive lanes at consecutive addresses.
-// The block's last step sums the per-knot squared sums in knot order into
-// merit.  No atomics: every value is computed by one thread in a fixed order,
-// so two launches on one input agree bit for bit.
+// Design.  One block of 256 threads (8 warps) per window, two blocks per SM
+// (at most 113 KB of shared memory each; `__launch_bounds__` holds the
+// registers to 128).  The block stages its work by kind over a chunk of the
+// window's knots (the whole window for K <= 41), with __syncthreads between
+// the stages:
+//   A. x of the chunk's knots and of the next chunk's first one (the halo)
+//      into shared memory by 16-byte cp.async;
+//   B. each knot's endpoint terms on one thread per knot (euler rate,
+//      accelerations, `wdot_and_derivs` and the 3 x 3 blocks of its
+//      dynamics rows: 126 floats, `EpTerms`), and the knot family of each
+//      (knot, foot) on one thread each (its blocks, 216 floats a knot with
+//      the shared ones, `FamTerms`; its share of the shared blocks,
+//      `FootShare`); the endpoints on whole warps of their own;
+//   C. the knot family's shared blocks and squared sum on one thread per
+//      knot, and each interval's residual and diagonal terms
+//      (`interval_terms`) on one thread per interval;
+//   D. in groups of at most 4 knots: (1) one thread per row expands Wa(x_k),
+//      Wb(x_k) (and Wb of the group's next knot) from the endpoint terms and
+//      D_k's 36 x 36 knot tile from the family's blocks into shared memory;
+//      (2) the Gram products as 4 x 4 register tiles: a thread owns a tile of
+//      D_k (lower triangle; Daa and Dbb are symmetric, so the tile above the
+//      diagonal takes the same sums), of L_k (all 81) or four entries of g_k,
+//      reads float4 rows of W (144-byte pitch) and writes its tiles to device
+//      memory with 16-byte streaming stores.
+// Each chunk hands its last endpoint terms and interval to the next (the
+// one-knot halo), so every closed form runs once.  The kernel's first design
+// (one warp per knot, commit 5a6d09c) computed each knot's endpoint terms four
+// times and each interval twice, on 4 of a warp's 32 lanes at a time, in
+// branches the warp ran one after another, and its Gram products read two
+// floats from shared memory per multiply-add; here the closed forms run on
+// one lane per knot, foot or interval across the block, and a Gram tile reads
+// half a float per multiply-add.  Thread 0 sums the per-knot and per-interval
+// squared sums in knot order into merit.  No atomics: every value is computed
+// by one thread in a fixed order, so two launches on one input agree bit for
+// bit.
 //
 // Arithmetic.  Each value is the plain version's expression in its order of
 // operations (sums of 3-term products from the first term, feet in order
 // 0..3, a Python number met by a float32 tensor taken as float32); built with
 // --fmad=false (nvcc) or -ffp-contract=off (g++) and without fast math, so
-// each product rounds on its own.  The plain version's batched matrix
+// each product rounds on its own.  Every value is also the expression of the
+// kernel's first design (one warp per knot), in the same order: a Gram entry
+// sums its 12 products from row 0, zeros included, and A[r][i] * A[r][j] ==
+// A[r][j] * A[r][i]; Wa and Wb are rebuilt from one knot's stored terms by
+// the first design's expressions; D_k's entry is (tile + Daa) + Dbb.  So the
+// outputs are that design's bit for bit.  The plain version's batched matrix
 // products (12-row Gram products, einsum contractions) sum in an order the
 // BLAS chooses, so the two agree to rounding, not bit for bit.  Constants
 // come from Python (qtos_torch/ops/assemble.py) in the layout
 // `assemble_param_layout()` names; the tensors' pointers in the order
 // `assemble_tensor_layout()` names.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -79,14 +101,32 @@
   X(interval_contact) X(start_r) X(start_eul) X(start_v) X(start_omega) X(start_feet) X(goal_r)          \
   X(goal_yaw) X(height) X(slope_height) X(D) X(L) X(g) X(merit)
 
+// The most knots a chunk may hold (0: as many as the shared memory of two
+// blocks per SM allows).  The CPU tests build the source with a small value
+// so that their windows run in several chunks.
+#ifndef ASM_MAX_CHUNK
+#define ASM_MAX_CHUNK 0
+#endif
+
 namespace {
 
-constexpr int kNV = 36;         // knot state width
+constexpr int kNV = 36;          // knot state width
 constexpr int kBlk = kNV * kNV;  // floats of one 36 x 36 block
-constexpr int kPitch = 37;      // the tile's row pitch in shared memory
-constexpr int kRows = 12;       // dynamics rows of one interval
-constexpr int kMaxWarps = 8;
+constexpr int kRows = 12;        // dynamics rows of one interval
+constexpr int kWFloats = kRows * kNV;
+constexpr int kThreads = 256;    // 8 warps
+constexpr int kMinBlocks = 2;    // blocks per SM
+constexpr int kGroup = 4;        // knots per Gram group (stage D)
+constexpr int kTile = 4;         // a thread's register tile: kTile x kTile
+constexpr int kTiles = kNV / kTile;                  // tiles per row of a block
+constexpr int kDUnits = kTiles * (kTiles + 1) / 2;   // lower-triangle tiles of D_k
+constexpr int kLUnits = kTiles * kTiles;             // tiles of L_k
+// Shared memory of an SM on an H100 (228 KB) shared by kMinBlocks blocks,
+// each with its 1 KB reserve.
+constexpr int kSmemBudget = 233472 / kMinBlocks - 1024;
 constexpr int C_R = 0, C_TH = 3, C_V = 6, C_W = 9, C_P = 12, C_F = 24;  // column offsets
+
+static_assert(kNV % kTile == 0, "the register tiles cover a block");
 
 struct AsmParams {
 #define ASM_SCALAR_FIELD(n) float n;
@@ -104,16 +144,30 @@ struct AsmTensors {
 #undef ASM_TENSOR_FIELD
 };
 
-// One foot's share of the knot family that lane 0 sums over the feet, and
-// its residuals for the knot's squared sum.
-struct FootShare {
-  float R[9], RR[9], RT[9], coef[3], dd[9], gc[3];
-  float terr, clear, nopen, fzero[3], fric[6], hi[3], lo[3], post[3], sl;
+// One knot's endpoint terms: what an interval's residual needs of it, and
+// the 3 x 3 blocks of its dynamics rows from which Wa and Wb are rebuilt.
+struct EpTerms {
+  float rate[3], acc[3], wd[3];
+  float hdE[9];   // half_dt * d(euler rate)/d(th), the th block of the th rows before sgn
+  float thW[9];   // the w block of the th rows
+  float wR[9], wTH[9];
+  float wW[9];    // c_kw * d(omega_dot)/dw, before the sgn * dyn_w diagonal
+  float wP[4][9], wF[4][9];
 };
 
-// What an interval's residual needs of one of its knots.
-struct Endpoint {
-  float rate[3], acc[3], wd[3];
+// One knot's family blocks of D_k, in the order of the tile's writes, and
+// its entries of g.
+struct FamTerms {
+  float rr[9], rth[9], thr[9], thth[9];          // (r, r), (r, th), (th, r), (th, th)
+  float pp[4][9], RR[4][9], TP[4][9], ff[4][9];  // (p_i, p_i); -(r, p_i); (th, p_i); (f_i, f_i)
+  float gk[kNV];
+};
+
+// One foot's share of the knot family that knot_shared sums over the feet,
+// and its residuals for the knot's squared sum.
+struct FootShare {
+  float RT[9], coef[3], dd[9], gc[3], R[9];
+  float terr, clear, nopen, fzero[3], fric[6], hi[3], lo[3], post[3], sl;
 };
 
 // One interval's residual rows and diagonal terms.
@@ -121,16 +175,35 @@ struct IntervalTerms {
   float res[kRows], dcoef[kNV], gdiag[kNV];
 };
 
-// The shared memory of one warp.
-struct WarpSmem {
-  float tile[kNV * kPitch];   // D_k's knot family
-  float W[3][kRows * kNV];    // Wb(x_k), Wa(x_k), Wb(x_{k+1})
-  float xs[3][kNV];           // x_{k-1}, x_k, x_{k+1}
-  float gk[kNV];              // g_k's knot family
-  Endpoint ep[4];             // x_k (as lane 8), x_k (lane 9), x_{k+1}, x_{k-1}
-  IntervalTerms iv[2];        // intervals k-1 and k
-  FootShare foot[4];
+constexpr int kEpFloats = sizeof(EpTerms) / sizeof(float);
+constexpr int kFamFloats = sizeof(FamTerms) / sizeof(float);
+constexpr int kFootFloats = sizeof(FootShare) / sizeof(float);
+constexpr int kIvFloats = sizeof(IntervalTerms) / sizeof(float);
+static_assert(kEpFloats == 126 && kFamFloats == 216 && kFootFloats == 55 && kIvFloats == 84,
+              "the compact stores hold floats only");
+
+__host__ __device__ constexpr int up4(int n) { return (n + 3) & ~3; }
+__host__ __device__ constexpr int max_i(int a, int b) { return a > b ? a : b; }
+
+// The block's shared memory for chunks of C knots, as float offsets (each a
+// multiple of 4, so every part is 16-byte aligned): x of C + 1 knots, their
+// endpoint terms, C + 1 intervals (the one before the chunk and its own),
+// the chunk's family blocks, its squared sums, and one region that holds the
+// feet's shares in stages B-C and the Gram group's W rows and tiles in D.
+struct Layout {
+  int xs, ep, iv, fam, sq, un, total;
 };
+
+__host__ __device__ constexpr Layout layout(int C) {
+  const int xs = 0;
+  const int ep = xs + up4(kNV * (C + 1));
+  const int iv = ep + up4(kEpFloats * (C + 1));
+  const int fam = iv + up4(kIvFloats * (C + 1));
+  const int sq = fam + up4(kFamFloats * C);
+  const int un = sq + up4(2 * C);
+  const int total = un + up4(max_i(kFootFloats * 4 * C, kWFloats * (2 * kGroup + 1) + kBlk * kGroup));
+  return Layout{xs, ep, iv, fam, sq, un, total};
+}
 
 DEV float clamp0(float x) { return x < 0.0f ? 0.0f : x; }  // torch.clamp(min=0): NaN passes through
 DEV float step(bool c) { return c ? 1.0f : 0.0f; }
@@ -230,16 +303,14 @@ DEV void terrain_at(const AsmParams& p, const float* __restrict__ h, float x, fl
   *gy = ((h10 - h00) * (1.0f - fx) + (h11 - h01) * fx) / p.terrain_res;
 }
 
-DEV float& at(float* tile, int i, int j) { return tile[i * kPitch + j]; }
 DEV float delta(int a, int b) { return a == b ? 1.0f : 0.0f; }
 
 // ---- solver/normal_eq.py: knot_normal ------------------------------------------
 
-// Foot i of knot k (lane i): its blocks (p_i, p_i), (r, p_i), (th, p_i),
-// their transposes and (f_i, f_i), its entries of g, and its share of the
-// rest in s.foot[i].
-DEV void foot_terms(const AsmParams& p, const AsmTensors& t, WarpSmem& s, int b, int k, int K, int i) {
-  const float* xk = s.xs[1];
+// Foot i of knot k (x_k at xk): its blocks (p_i, p_i), (r, p_i), (th, p_i)
+// and (f_i, f_i) and its entries of g into fam, its share of the rest into F.
+DEV void foot_terms(const AsmParams& p, const AsmTensors& t, const float* xk, FamTerms& fam, FootShare& F, int b,
+                    int k, int K, int i) {
   const float r[3] = {xk[C_R], xk[C_R + 1], xk[C_R + 2]};
   const float th[3] = {xk[C_TH], xk[C_TH + 1], xk[C_TH + 2]};
   const float* pp = xk + C_P + 3 * i;
@@ -252,8 +323,6 @@ DEV void foot_terms(const AsmParams& p, const AsmTensors& t, WarpSmem& s, int b,
   const float m0 = t.is_first[k] * p.init;
   const float m02 = m0 * m0;
   const float swing = 1.0f - c;
-  FootShare& F = s.foot[i];
-  float* tile = s.tile;
   const int P = C_P + 3 * i, Fc = C_F + 3 * i;
 
   // terrain, clearance, no-penetration: one direction a_dir on p_i
@@ -300,12 +369,12 @@ DEV void foot_terms(const AsmParams& p, const AsmTensors& t, WarpSmem& s, int b,
       float ftf = fv[0][a] * fv[0][bb];
 #pragma unroll
       for (int j = 1; j < 6; ++j) ftf = ftf + fv[j][a] * fv[j][bb];
-      at(tile, Fc + a, Fc + bb) = mF * mF * delta(a, bb) + ftf;
+      fam.ff[i][3 * a + bb] = mF * mF * delta(a, bb) + ftf;
     }
     float gfr = fv[0][a] * res_fric[0];
 #pragma unroll
     for (int j = 1; j < 6; ++j) gfr = gfr + fv[j][a] * res_fric[j];
-    s.gk[Fc + a] = mF * res_fzero[a] + gfr;
+    fam.gk[Fc + a] = mF * res_fzero[a] + gfr;
   }
 
   // range-of-motion hinges and posture: d = R^T (p - r) - nominal
@@ -330,7 +399,7 @@ DEV void foot_terms(const AsmParams& p, const AsmTensors& t, WarpSmem& s, int b,
 #pragma unroll
     for (int j = 0; j < 3; ++j) dd[m][j] = pr[0] * dR[j][0][m] + pr[1] * dR[j][1][m] + pr[2] * dR[j][2][m];
   }
-  float RR[3][3], TP[3][3], gprom[3];
+  float RR[3][3], gprom[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
 #pragma unroll
@@ -344,8 +413,8 @@ DEV void foot_terms(const AsmParams& p, const AsmTensors& t, WarpSmem& s, int b,
         tp = tp + coef[m] * dd[m][a] * R[bb][m];
       }
       RR[a][bb] = rr;
-      TP[a][bb] = tp;
-      F.RR[3 * a + bb] = rr;
+      fam.RR[i][3 * a + bb] = rr;
+      fam.TP[i][3 * a + bb] = tp;
       F.RT[3 * a + bb] = rt;
       F.R[3 * a + bb] = R[a][bb];
       F.dd[3 * a + bb] = dd[a][bb];
@@ -367,15 +436,10 @@ DEV void foot_terms(const AsmParams& p, const AsmTensors& t, WarpSmem& s, int b,
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
 #pragma unroll
-    for (int bb = 0; bb < 3; ++bb) {
-      at(tile, P + a, P + bb) =
+    for (int bb = 0; bb < 3; ++bb)
+      fam.pp[i][3 * a + bb] =
           coef_p * (a_dir[a] * a_dir[bb]) + RR[a][bb] + m_sl * m_sl * (u_sl[a] * u_sl[bb]) + m02 * delta(a, bb);
-      at(tile, C_R + a, P + bb) = -RR[a][bb];
-      at(tile, P + a, C_R + bb) = -RR[bb][a];
-      at(tile, C_TH + a, P + bb) = TP[a][bb];
-      at(tile, P + a, C_TH + bb) = TP[bb][a];
-    }
-    s.gk[P + a] = gcoef_p * a_dir[a] + gprom[a] + m_sl * res_sl * u_sl[a] + m02 * (pp[a] - st_feet[a]);
+    fam.gk[P + a] = gcoef_p * a_dir[a] + gprom[a] + m_sl * res_sl * u_sl[a] + m02 * (pp[a] - st_feet[a]);
   }
 }
 
@@ -385,16 +449,15 @@ DEV float sum_sq(const float* v, int n) {
   return acc;
 }
 
-// Lane 0: the blocks of r, th, v and w (the feet's shares, base clearance,
-// init, goal), their entries of g, and the knot's squared residual sum.
-DEV float knot_shared(const AsmParams& p, const AsmTensors& t, WarpSmem& s, int b, int k) {
-  const float* xk = s.xs[1];
+// Knot k (x_k at xk): the blocks of r and th (the feet's shares, base
+// clearance, init, goal) into fam, its entries of g for r, th, v and w, and
+// the knot's squared residual sum.
+DEV float knot_shared(const AsmParams& p, const AsmTensors& t, const float* xk, FamTerms& fam,
+                      const FootShare* F, int b, int k) {
   const float* r = xk + C_R;
   const float* th = xk + C_TH;
   const float* v = xk + C_V;
   const float* w = xk + C_W;
-  const FootShare* F = s.foot;
-  float* tile = s.tile;
   const float m0 = t.is_first[k] * p.init, mG = t.is_last[k] * p.goal;
   const float m02 = m0 * m0, mG2 = mG * mG;
   const float* st_r = t.start_r + (size_t)b * 3;
@@ -418,7 +481,7 @@ DEV float knot_shared(const AsmParams& p, const AsmTensors& t, WarpSmem& s, int 
 #pragma unroll
     for (int bb = 0; bb < 3; ++bb) {
       const int e = 3 * a + bb;
-      const float rr = F[0].RR[e] + F[1].RR[e] + F[2].RR[e] + F[3].RR[e];
+      const float rr = fam.RR[0][e] + fam.RR[1][e] + fam.RR[2][e] + fam.RR[3][e];
       const float rt = F[0].RT[e] + F[1].RT[e] + F[2].RT[e] + F[3].RT[e];
       const float rt_t = F[0].RT[3 * bb + a] + F[1].RT[3 * bb + a] + F[2].RT[3 * bb + a] + F[3].RT[3 * bb + a];
       float tt = 0.0f;
@@ -431,12 +494,10 @@ DEV float knot_shared(const AsmParams& p, const AsmTensors& t, WarpSmem& s, int 
           tt = first ? term : tt + term;
           first = false;
         }
-      at(tile, C_R + a, C_R + bb) = rr + act_b * act_b * (u_b[a] * u_b[bb]) + m02 * delta(a, bb) + mG2 * delta(a, bb);
-      at(tile, C_R + a, C_TH + bb) = -rt;
-      at(tile, C_TH + a, C_R + bb) = -rt_t;
-      at(tile, C_TH + a, C_TH + bb) = tt + m02 * delta(a, bb) + mG2 * (a == 2 && bb == 2 ? 1.0f : 0.0f);
-      at(tile, C_V + a, C_V + bb) = m02 * delta(a, bb) + 0.25f * mG2 * delta(a, bb);
-      at(tile, C_W + a, C_W + bb) = m02 * delta(a, bb) + 0.25f * mG2 * delta(a, bb);
+      fam.rr[e] = rr + act_b * act_b * (u_b[a] * u_b[bb]) + m02 * delta(a, bb) + mG2 * delta(a, bb);
+      fam.rth[e] = -rt;
+      fam.thr[e] = -rt_t;
+      fam.thth[e] = tt + m02 * delta(a, bb) + mG2 * (a == 2 && bb == 2 ? 1.0f : 0.0f);
     }
     float gr = 0.0f, gth = 0.0f;
     bool first = true;
@@ -449,10 +510,10 @@ DEV float knot_shared(const AsmParams& p, const AsmTensors& t, WarpSmem& s, int 
         gth = first ? tth : gth + tth;
         first = false;
       }
-    s.gk[C_R + a] = -gr + act_b * res_b * u_b[a] + m02 * (r[a] - st_r[a]) + mG2 * (r[a] - goal_r[a]);
-    s.gk[C_TH + a] = gth + m02 * (th[a] - st_eul[a]) + mG2 * dyaw * (a == 2 ? 1.0f : 0.0f);
-    s.gk[C_V + a] = m02 * (v[a] - st_v[a]) + 0.25f * mG2 * v[a];
-    s.gk[C_W + a] = m02 * (w[a] - st_w[a]) + 0.25f * mG2 * w[a];
+    fam.gk[C_R + a] = -gr + act_b * res_b * u_b[a] + m02 * (r[a] - st_r[a]) + mG2 * (r[a] - goal_r[a]);
+    fam.gk[C_TH + a] = gth + m02 * (th[a] - st_eul[a]) + mG2 * dyaw * (a == 2 ? 1.0f : 0.0f);
+    fam.gk[C_V + a] = m02 * (v[a] - st_v[a]) + 0.25f * mG2 * v[a];
+    fam.gk[C_W + a] = m02 * (w[a] - st_w[a]) + 0.25f * mG2 * w[a];
   }
 
   // the squared sum, family by family as knot_normal adds it
@@ -501,12 +562,12 @@ DEV float knot_shared(const AsmParams& p, const AsmTensors& t, WarpSmem& s, int 
 
 // ---- solver/normal_eq.py: interval_normal ----------------------------------------
 
-// The terms of one knot x_j that an interval's dynamics rows need: the euler
-// rate, the linear acceleration and omega_dot (`wdot_and_derivs`) into ep,
-// and, if W is given, the 12 x 36 rows of the interval's Jacobian with
-// respect to x_j: Wa (sgn -1, x_j the interval's first knot) or Wb (sgn +1),
-// into rows the warp has zeroed.
-DEV void endpoint_terms(const AsmParams& p, const float* xj, float sgn, float* W, Endpoint& ep) {
+// The terms of one knot x_j that the dynamics rows of its two intervals
+// need: the euler rate, the linear acceleration and omega_dot
+// (`wdot_and_derivs`), and the 3 x 3 blocks of the rows' Jacobian with
+// respect to x_j from which `w_row` rebuilds Wa (x_j the interval's first
+// knot) and Wb (its second).
+DEV void endpoint_terms(const AsmParams& p, const float* xj, EpTerms& ep) {
   const float r[3] = {xj[C_R], xj[C_R + 1], xj[C_R + 2]};
   const float th[3] = {xj[C_TH], xj[C_TH + 1], xj[C_TH + 2]};
   const float w[3] = {xj[C_W], xj[C_W + 1], xj[C_W + 2]};
@@ -556,24 +617,14 @@ DEV void endpoint_terms(const AsmParams& p, const float* xj, float sgn, float* W
 #pragma unroll
   for (int a = 0; a < 3; ++a) rhs[a] = tau[a] - cw[a];
   mv3(Iwinv, rhs, ep.wd);
-  if (W == nullptr) return;
 
-  float* Wr = W;                 // rows 0-2: dyn_r
-  float* Wth = W + 3 * kNV;      // rows 3-5: dyn_th
-  float* Wv = W + 6 * kNV;       // rows 6-8: dyn_v
-  float* Ww = W + 9 * kNV;       // rows 9-11: dyn_w
   float nIwinv[3][3], S[3][3], M[3][3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    Wr[a * kNV + C_R + a] = sgn > 0.0f ? p.dyn_r : -p.dyn_r;
-    Wr[a * kNV + C_V + a] = p.c_vr;
-    Wv[a * kNV + C_V + a] = sgn > 0.0f ? p.dyn_v : -p.dyn_v;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Wv[a * kNV + C_F + 3 * i + a] = p.c_fv;
 #pragma unroll
     for (int bb = 0; bb < 3; ++bb) {
-      Wth[a * kNV + C_TH + bb] = (sgn * delta(a, bb) - p.half_dt * dE[a][bb]) * p.dyn_th;
-      Wth[a * kNV + C_W + bb] = p.m_half_dt * E[a][bb] * p.dyn_th;
+      ep.hdE[3 * a + bb] = p.half_dt * dE[a][bb];
+      ep.thW[3 * a + bb] = p.m_half_dt * E[a][bb] * p.dyn_th;
       nIwinv[a][bb] = -Iwinv[a][bb];
     }
   }
@@ -583,20 +634,20 @@ DEV void endpoint_terms(const AsmParams& p, const float* xj, float sgn, float* W
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
-    for (int bb = 0; bb < 3; ++bb) Ww[a * kNV + C_R + bb] = p.c_kw * M[a][bb];
+    for (int bb = 0; bb < 3; ++bb) ep.wR[3 * a + bb] = p.c_kw * M[a][bb];
   for (int i = 0; i < 4; ++i) {
     skew3(f[i], S);
     mm3(nIwinv, S, M);
 #pragma unroll
     for (int a = 0; a < 3; ++a)
 #pragma unroll
-      for (int bb = 0; bb < 3; ++bb) Ww[a * kNV + C_P + 3 * i + bb] = p.c_kw * M[a][bb];
+      for (int bb = 0; bb < 3; ++bb) ep.wP[i][3 * a + bb] = p.c_kw * M[a][bb];
     skew3(pr[i], S);
     mm3(Iwinv, S, M);
 #pragma unroll
     for (int a = 0; a < 3; ++a)
 #pragma unroll
-      for (int bb = 0; bb < 3; ++bb) Ww[a * kNV + C_F + 3 * i + bb] = p.c_kwf * M[a][bb];
+      for (int bb = 0; bb < 3; ++bb) ep.wF[i][3 * a + bb] = p.c_kwf * M[a][bb];
   }
   // dwd_dw = -I_winv (skew(w) I_w - skew(I_w w))
   {
@@ -612,8 +663,7 @@ DEV void endpoint_terms(const AsmParams& p, const float* xj, float sgn, float* W
 #pragma unroll
     for (int a = 0; a < 3; ++a)
 #pragma unroll
-      for (int bb = 0; bb < 3; ++bb)
-        Ww[a * kNV + C_W + bb] = sgn * p.dyn_w * delta(a, bb) + p.c_kw * M[a][bb];
+      for (int bb = 0; bb < 3; ++bb) ep.wW[3 * a + bb] = p.c_kw * M[a][bb];
   }
   // dwd_dth: column j from d(R I R^T)/dth_j = dR_j I R^T + its transpose
   for (int j = 0; j < 3; ++j) {
@@ -635,15 +685,15 @@ DEV void endpoint_terms(const AsmParams& p, const float* xj, float sgn, float* W
     cross3(w, u, t2);
     mv3(Iwinv, t2, q);
 #pragma unroll
-    for (int a = 0; a < 3; ++a) Ww[a * kNV + C_TH + j] = p.c_kw * (t1[a] - q[a]);
+    for (int a = 0; a < 3; ++a) ep.wTH[3 * a + j] = p.c_kw * (t1[a] - q[a]);
   }
 }
 
-// Lanes 1-2: the dynamics residual of the interval (x_a, x_b), its diagonal
-// families (stationarity, foot velocity, accelerations, force rate) and
-// their terms of D and g; returns the interval's squared residual sum.
-DEV float interval_terms(const AsmParams& p, const float* xa, const float* xb, const Endpoint& ea,
-                         const Endpoint& eb, const float* ca, const float* cb, IntervalTerms& it) {
+// The dynamics residual of the interval (x_a, x_b), its diagonal families
+// (stationarity, foot velocity, accelerations, force rate) and their terms
+// of D and g; returns the interval's squared residual sum.
+DEV float interval_terms(const AsmParams& p, const float* xa, const float* xb, const EpTerms& ea,
+                         const EpTerms& eb, const float* ca, const float* cb, IntervalTerms& it) {
   float sq = 0.0f;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -687,118 +737,363 @@ DEV float interval_terms(const AsmParams& p, const float* xa, const float* xb, c
   return sq;
 }
 
-// sum_r A[r][i] * B[r][j] over the 12 rows, from the first.
-DEV float gram(const float* A, const float* B, int i, int j) {
-  float acc = A[i] * B[j];
+// ---- stage D: the rows in shared memory, the Gram products -----------------------
+
+DEV float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+DEV void zero_row(float* row) {
 #pragma unroll
-  for (int r = 1; r < kRows; ++r) acc = acc + A[r * kNV + i] * B[r * kNV + j];
-  return acc;
+  for (int c = 0; c < kNV; c += 4) *reinterpret_cast<float4*>(row + c) = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+}
+// A 16-byte store to device memory that is not read again by this kernel.
+DEV void st4(float* dst, float a, float b, float c, float d) {
+  __stcs(reinterpret_cast<float4*>(dst), make_float4(a, b, c, d));
 }
 
-DEV float gram_vec(const float* A, const float* v, int i) {
-  float acc = A[i] * v[0];
+// Row r of the interval Jacobian of the knot whose endpoint terms are e, as
+// its first knot (Wa, sgn -1) or its second (Wb, sgn +1): rows 0-2 dyn_r,
+// 3-5 dyn_th, 6-8 dyn_v, 9-11 dyn_w; zeros where it has none.
+DEV void w_row(const AsmParams& p, const EpTerms& e, float sgn, int r, float* row) {
+  zero_row(row);
+  const int a = r % 3;
+  switch (r / 3) {
+    case 0:
+      row[C_R + a] = sgn > 0.0f ? p.dyn_r : -p.dyn_r;
+      row[C_V + a] = p.c_vr;
+      break;
+    case 1:
 #pragma unroll
-  for (int r = 1; r < kRows; ++r) acc = acc + A[r * kNV + i] * v[r];
-  return acc;
+      for (int bb = 0; bb < 3; ++bb) {
+        row[C_TH + bb] = (sgn * delta(a, bb) - e.hdE[3 * a + bb]) * p.dyn_th;
+        row[C_W + bb] = e.thW[3 * a + bb];
+      }
+      break;
+    case 2:
+      row[C_V + a] = sgn > 0.0f ? p.dyn_v : -p.dyn_v;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) row[C_F + 3 * i + a] = p.c_fv;
+      break;
+    default:
+#pragma unroll
+      for (int bb = 0; bb < 3; ++bb) {
+        row[C_R + bb] = e.wR[3 * a + bb];
+        row[C_TH + bb] = e.wTH[3 * a + bb];
+        row[C_W + bb] = sgn * p.dyn_w * delta(a, bb) + e.wW[3 * a + bb];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          row[C_P + 3 * i + bb] = e.wP[i][3 * a + bb];
+          row[C_F + 3 * i + bb] = e.wF[i][3 * a + bb];
+        }
+      }
+  }
 }
 
-// Two blocks per SM: ptxas then holds the kernel to 128 registers without
-// spills (182 with one block per SM); 14 % faster at (8192, 41) on an H100,
-// bit for bit the same.
-__global__ void __launch_bounds__(kMaxWarps * 32, 2)
-assemble_kernel(AsmParams p, AsmTensors t, int B, int K) {
+// Row i of knot k's 36 x 36 knot-family tile from its blocks in F; zeros
+// where the family has none.
+DEV void tile_row(const AsmParams& p, const AsmTensors& t, const FamTerms& F, int k, int i, float* row) {
+  zero_row(row);
+  const int gi = i / 3, a = i % 3;
+  if (gi == 0) {
+#pragma unroll
+    for (int bb = 0; bb < 3; ++bb) {
+      row[C_R + bb] = F.rr[3 * a + bb];
+      row[C_TH + bb] = F.rth[3 * a + bb];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) row[C_P + 3 * f + bb] = -F.RR[f][3 * a + bb];
+    }
+  } else if (gi == 1) {
+#pragma unroll
+    for (int bb = 0; bb < 3; ++bb) {
+      row[C_R + bb] = F.thr[3 * a + bb];
+      row[C_TH + bb] = F.thth[3 * a + bb];
+#pragma unroll
+      for (int f = 0; f < 4; ++f) row[C_P + 3 * f + bb] = F.TP[f][3 * a + bb];
+    }
+  } else if (gi < 4) {  // the (v, v) and (w, w) blocks of init and goal
+    const float m0 = t.is_first[k] * p.init, mG = t.is_last[k] * p.goal;
+    const float m02 = m0 * m0, mG2 = mG * mG;
+    const int c = gi == 2 ? C_V : C_W;
+#pragma unroll
+    for (int bb = 0; bb < 3; ++bb) row[c + bb] = m02 * delta(a, bb) + 0.25f * mG2 * delta(a, bb);
+  } else if (gi < 8) {  // foot f's rows of p_f
+    const int f = gi - 4;
+#pragma unroll
+    for (int bb = 0; bb < 3; ++bb) {
+      row[C_R + bb] = -F.RR[f][3 * bb + a];
+      row[C_TH + bb] = F.TP[f][3 * bb + a];
+      row[C_P + 3 * f + bb] = F.pp[f][3 * a + bb];
+    }
+  } else {  // foot f's rows of f_f
+    const int f = gi - 8;
+#pragma unroll
+    for (int bb = 0; bb < 3; ++bb) row[C_F + 3 * f + bb] = F.ff[f][3 * a + bb];
+  }
+}
+
+// acc[p][q] = sum over the 12 rows r, from the first, of A[r][ci + p] *
+// Bm[r][cj + q]: a 4 x 4 tile of A^T Bm, its two operands read as float4.
+DEV void gram_tile(const float* A, const float* Bm, int ci, int cj, float acc[kTile][kTile]) {
+  float4 va = ld4(A + ci), vb = ld4(Bm + cj);
+  {
+    const float a[4] = {va.x, va.y, va.z, va.w}, b[4] = {vb.x, vb.y, vb.z, vb.w};
+#pragma unroll
+    for (int p = 0; p < kTile; ++p)
+#pragma unroll
+      for (int q = 0; q < kTile; ++q) acc[p][q] = a[p] * b[q];
+  }
+#pragma unroll
+  for (int r = 1; r < kRows; ++r) {
+    va = ld4(A + r * kNV + ci);
+    vb = ld4(Bm + r * kNV + cj);
+    const float a[4] = {va.x, va.y, va.z, va.w}, b[4] = {vb.x, vb.y, vb.z, vb.w};
+#pragma unroll
+    for (int p = 0; p < kTile; ++p)
+#pragma unroll
+      for (int q = 0; q < kTile; ++q) acc[p][q] = acc[p][q] + a[p] * b[q];
+  }
+}
+
+// acc[q] = sum over the 12 rows r, from the first, of A[r][c + q] * v[r].
+DEV void gram_vec4(const float* A, const float* v, int c, float acc[kTile]) {
+  float4 va = ld4(A + c);
+  acc[0] = va.x * v[0];
+  acc[1] = va.y * v[0];
+  acc[2] = va.z * v[0];
+  acc[3] = va.w * v[0];
+#pragma unroll
+  for (int r = 1; r < kRows; ++r) {
+    va = ld4(A + r * kNV + c);
+    acc[0] = acc[0] + va.x * v[r];
+    acc[1] = acc[1] + va.y * v[r];
+    acc[2] = acc[2] + va.z * v[r];
+    acc[3] = acc[3] + va.w * v[r];
+  }
+}
+
+// The tile (ti, tj), tj <= ti, of D_k = tile + Daa + Dbb and, above the
+// diagonal, its mirror (tj, ti): Daa and Dbb are symmetric entry for entry,
+// the knot tile is not.  Wm = Wa(x_k), Wp = Wb(x_k); ia, ib intervals k and
+// k-1.
+DEV void d_tile(const float* tile, const float* Wm, const float* Wp, const IntervalTerms& ia,
+                const IntervalTerms& ib, bool has_a, bool has_b, int ti, int tj, float* Dk) {
+  const int ci = kTile * ti, cj = kTile * tj;
+  const bool mirror = ti != tj;
+  float v[kTile][kTile], m[kTile][kTile], acc[kTile][kTile];
+#pragma unroll
+  for (int p = 0; p < kTile; ++p) {
+    const float4 row = ld4(tile + (ci + p) * kNV + cj);
+    v[p][0] = row.x, v[p][1] = row.y, v[p][2] = row.z, v[p][3] = row.w;
+  }
+  if (mirror) {
+#pragma unroll
+    for (int q = 0; q < kTile; ++q) {
+      const float4 row = ld4(tile + (cj + q) * kNV + ci);
+      m[q][0] = row.x, m[q][1] = row.y, m[q][2] = row.z, m[q][3] = row.w;
+    }
+  }
+  if (has_a) {
+    gram_tile(Wm, Wm, ci, cj, acc);
+    if (!mirror) {
+#pragma unroll
+      for (int p = 0; p < kTile; ++p) acc[p][p] = acc[p][p] + ia.dcoef[ci + p];
+    }
+#pragma unroll
+    for (int p = 0; p < kTile; ++p)
+#pragma unroll
+      for (int q = 0; q < kTile; ++q) {
+        v[p][q] = v[p][q] + acc[p][q];
+        if (mirror) m[q][p] = m[q][p] + acc[p][q];
+      }
+  }
+  if (has_b) {
+    gram_tile(Wp, Wp, ci, cj, acc);
+    if (!mirror) {
+#pragma unroll
+      for (int p = 0; p < kTile; ++p) acc[p][p] = acc[p][p] + ib.dcoef[ci + p];
+    }
+#pragma unroll
+    for (int p = 0; p < kTile; ++p)
+#pragma unroll
+      for (int q = 0; q < kTile; ++q) {
+        v[p][q] = v[p][q] + acc[p][q];
+        if (mirror) m[q][p] = m[q][p] + acc[p][q];
+      }
+  }
+#pragma unroll
+  for (int p = 0; p < kTile; ++p) st4(Dk + (ci + p) * kNV + cj, v[p][0], v[p][1], v[p][2], v[p][3]);
+  if (mirror) {
+#pragma unroll
+    for (int q = 0; q < kTile; ++q) st4(Dk + (cj + q) * kNV + ci, m[q][0], m[q][1], m[q][2], m[q][3]);
+  }
+}
+
+// The tile (ti, tj) of L_k = Lba = Wb(x_{k+1})^T Wa(x_k) of interval k.
+DEV void l_tile(const float* Wn, const float* Wm, const IntervalTerms& ia, int ti, int tj, float* Lk) {
+  const int ci = kTile * ti, cj = kTile * tj;
+  float acc[kTile][kTile];
+  gram_tile(Wn, Wm, ci, cj, acc);
+  if (ti == tj) {
+#pragma unroll
+    for (int p = 0; p < kTile; ++p) acc[p][p] = acc[p][p] - ia.dcoef[ci + p];
+  }
+#pragma unroll
+  for (int p = 0; p < kTile; ++p) st4(Lk + (ci + p) * kNV + cj, acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+}
+
+// Entries 4c..4c+3 of g_k = gk + Wa^T res_k - gdiag_k + Wb^T res_{k-1} + gdiag_{k-1}.
+DEV void g_piece(const float* gk, const float* Wm, const float* Wp, const IntervalTerms& ia,
+                 const IntervalTerms& ib, bool has_a, bool has_b, int c, float* g) {
+  const int c4 = kTile * c;
+  float v[kTile], acc[kTile];
+#pragma unroll
+  for (int q = 0; q < kTile; ++q) v[q] = gk[c4 + q];
+  if (has_a) {
+    gram_vec4(Wm, ia.res, c4, acc);
+#pragma unroll
+    for (int q = 0; q < kTile; ++q) v[q] = v[q] + (acc[q] - ia.gdiag[c4 + q]);
+  }
+  if (has_b) {
+    gram_vec4(Wp, ib.res, c4, acc);
+#pragma unroll
+    for (int q = 0; q < kTile; ++q) v[q] = v[q] + (acc[q] + ib.gdiag[c4 + q]);
+  }
+  st4(g + c4, v[0], v[1], v[2], v[3]);
+}
+
+// Starts a 16-byte copy from device memory to shared memory (cp.async);
+// complete after cp_wait.
+DEV void cp_async16(float* dst, const float* src) { __pipeline_memcpy_async(dst, src, 16); }
+// Waits for the thread's copies; the __syncthreads that follows makes every
+// thread's copies visible to the block.
+DEV void cp_wait() {
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+assemble_kernel(AsmParams p, AsmTensors t, int B, int K, int C) {
   extern __shared__ float4 smem4[];
-  WarpSmem* all = reinterpret_cast<WarpSmem*>(smem4);
-  const int warps = blockDim.x >> 5, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  WarpSmem& s = all[warp];
-  float* sq_knot = reinterpret_cast<float*>(all + warps);  // (K,) then (K-1,) of intervals
-  float* sq_int = sq_knot + K;
-  const int b = blockIdx.x;
-  const float* xs_b = t.x + (size_t)b * K * kNV;
+  float* sm = reinterpret_cast<float*>(smem4);
+  const Layout lay = layout(C);
+  float* xs = sm + lay.xs;                                        // x_{k0} .. x_{k0+C}
+  EpTerms* ep = reinterpret_cast<EpTerms*>(sm + lay.ep);          // slot s: knot k0 + s
+  IntervalTerms* iv = reinterpret_cast<IntervalTerms*>(sm + lay.iv);  // slot s: interval k0 - 1 + s
+  FamTerms* fam = reinterpret_cast<FamTerms*>(sm + lay.fam);      // slot s: knot k0 + s
+  float* sq_knot = sm + lay.sq;
+  float* sq_int = sq_knot + C;
+  FootShare* foot = reinterpret_cast<FootShare*>(sm + lay.un);    // stages B-C: (knot slot, foot)
+  float* WA = sm + lay.un;                                        // stage D: Wa of the group's knots,
+  float* WB = WA + kGroup * kWFloats;                             // Wb of them and of the next knot,
+  float* tiles = WB + (kGroup + 1) * kWFloats;                    // their knot tiles
+  const int tid = threadIdx.x, b = blockIdx.x;
+  const float* xb = t.x + (size_t)b * K * kNV;
   const float* ic = t.interval_contact + (size_t)b * K * 4;
+  float sk = 0.0f, si = 0.0f;  // thread 0: the squared sums so far, in knot order
 
-  for (int k = warp; k < K; k += warps) {
-    const bool has_a = k < K - 1, has_b = k > 0;  // interval k, interval k-1
-    // 0. the three knots, a zero tile
-    float* xs = &s.xs[0][0];
-    for (int e = lane; e < 3 * kNV; e += 32) {
-      const int j = k - 1 + e / kNV;
-      xs[e] = (j >= 0 && j < K) ? xs_b[(size_t)j * kNV + e % kNV] : 0.0f;
-    }
-    for (int e = lane; e < kNV * kPitch; e += 32) s.tile[e] = 0.0f;
-    for (int e = lane; e < 3 * kRows * kNV; e += 32) (&s.W[0][0])[e] = 0.0f;
-    for (int e = lane; e < kNV; e += 32) s.gk[e] = 0.0f;
-    __syncwarp();
-    // 1. the feet of the knot family; the endpoint terms
-    if (lane < 4) {
-      foot_terms(p, t, s, b, k, K, lane);
-    } else if (lane >= 8 && lane < 12) {
-      const int q = lane - 8;  // 0: Wb(x_k), 1: Wa(x_k), 2: Wb(x_{k+1}), 3: x_{k-1}
-      const bool need = (q == 0 || q == 3) ? has_b : has_a;
-      if (need)
-        endpoint_terms(p, s.xs[q == 2 ? 2 : (q == 3 ? 0 : 1)], q == 1 ? -1.0f : 1.0f, q < 3 ? s.W[q] : nullptr,
-                       s.ep[q]);
-    }
-    __syncwarp();
-    // 2. the knot family's shared blocks; the two intervals' residuals
-    if (lane == 0) {
-      sq_knot[k] = knot_shared(p, t, s, b, k);
-    } else if (lane == 1 && has_b) {
-      interval_terms(p, s.xs[0], s.xs[1], s.ep[3], s.ep[0], ic + (k - 1) * 4, ic + k * 4, s.iv[0]);
-    } else if (lane == 2 && has_a) {
-      sq_int[k] = interval_terms(p, s.xs[1], s.xs[2], s.ep[1], s.ep[2], ic + k * 4, ic + (k + 1) * 4, s.iv[1]);
-    }
-    __syncwarp();
-    // 3. D_k, L_k and g_k, written whole
-    float* Dk = t.D + ((size_t)b * K + k) * kBlk;
-    float* Lk = t.L + ((size_t)b * (K - 1) + k) * kBlk;
-    const float* Wp = s.W[0];  // Wb(x_k): Dbb of interval k-1
-    const float* Wm = s.W[1];  // Wa(x_k): Daa of interval k
-    const float* Wn = s.W[2];  // Wb(x_{k+1}): Lba = Wb^T Wa of interval k
-    for (int e = lane; e < kBlk; e += 32) {
-      const int i = e / kNV, j = e - i * kNV;
-      float v = s.tile[i * kPitch + j];
-      if (has_a) {
-        float daa = gram(Wm, Wm, i, j);
-        if (i == j) daa = daa + s.iv[1].dcoef[i];
-        v = v + daa;
-        float lba = gram(Wn, Wm, i, j);
-        if (i == j) lba = lba - s.iv[1].dcoef[i];
-        Lk[e] = lba;
+  for (int k0 = 0; k0 < K; k0 += C) {
+    const int n = min(C, K - k0);         // the chunk's knots k0 .. k0+n-1
+    const int kx = min(k0 + n, K - 1);    // the chunk's last knot, or the next chunk's first (the halo)
+    const int ni = kx - k0;               // the chunk's intervals k0 .. kx-1
+    // A. x_{k0} .. x_{kx}
+    for (int e = tid; e < (kx - k0 + 1) * (kNV / 4); e += kThreads)
+      cp_async16(xs + 4 * e, xb + (size_t)k0 * kNV + 4 * e);
+    cp_wait();
+    __syncthreads();
+
+    // B. endpoint terms of knots e0 .. kx on whole warps of their own; the
+    // feet of the chunk's knots on the warps after them
+    const int e0 = k0 == 0 ? 0 : k0 + 1;  // knot k0's terms came with the chunk before
+    const int nE = kx - e0 + 1;
+    const int nEw = (nE + 31) & ~31;
+    for (int it = tid; it < nEw + 4 * n; it += kThreads) {
+      if (it < nE) {
+        const int s = e0 + it - k0;
+        endpoint_terms(p, xs + s * kNV, ep[s]);
+      } else if (it >= nEw) {
+        const int s = (it - nEw) >> 2, i = (it - nEw) & 3;
+        foot_terms(p, t, xs + s * kNV, fam[s], foot[4 * s + i], b, k0 + s, K, i);
       }
-      if (has_b) {
-        float dbb = gram(Wp, Wp, i, j);
-        if (i == j) dbb = dbb + s.iv[0].dcoef[i];
-        v = v + dbb;
+    }
+    __syncthreads();
+
+    // C. the knots' shared blocks; the intervals
+    const int nw = (n + 31) & ~31;
+    for (int it = tid; it < nw + ni; it += kThreads) {
+      if (it < n) {
+        sq_knot[it] = knot_shared(p, t, xs + it * kNV, fam[it], foot + 4 * it, b, k0 + it);
+      } else if (it >= nw) {
+        const int s = it - nw, k = k0 + s;
+        sq_int[s] = interval_terms(p, xs + s * kNV, xs + (s + 1) * kNV, ep[s], ep[s + 1], ic + k * 4,
+                                   ic + (k + 1) * 4, iv[s + 1]);
       }
-      Dk[e] = v;
     }
-    for (int i = lane; i < kNV; i += 32) {
-      float v = s.gk[i];
-      if (has_a) v = v + (gram_vec(Wm, s.iv[1].res, i) - s.iv[1].gdiag[i]);
-      if (has_b) v = v + (gram_vec(Wp, s.iv[0].res, i) + s.iv[0].gdiag[i]);
-      t.g[((size_t)b * K + k) * kNV + i] = v;
+    __syncthreads();
+    if (tid == 0) {
+      for (int s = 0; s < n; ++s) sk = k0 + s == 0 ? sq_knot[s] : sk + sq_knot[s];
+      for (int s = 0; s < ni; ++s) si = k0 + s == 0 ? sq_int[s] : si + sq_int[s];
     }
-    __syncwarp();
+
+    // D. groups of at most kGroup knots, spread evenly
+    const int groups = (n + kGroup - 1) / kGroup, base = n / groups, extra = n % groups;
+    for (int gr = 0; gr < groups; ++gr) {
+      const int gs = gr * base + min(gr, extra), gn = base + (gr < extra ? 1 : 0);
+      const int ks = k0 + gs;  // the group's knots ks .. ks+gn-1
+      // 1. Wa(x_k), Wb(x_k), Wb(x_{ks+gn}) and the knot tiles, one row per thread
+      const int wrows = (2 * gn + 1) * kRows;
+      for (int job = tid; job < wrows + gn * kNV; job += kThreads) {
+        if (job < wrows) {
+          const int m = job / kRows, r = job - m * kRows;
+          const bool wa = m < gn;  // Wa(x_{ks+m}), else Wb(x_{ks+m-gn})
+          const int k = wa ? ks + m : ks + m - gn;
+          float* W = wa ? WA + m * kWFloats : WB + (m - gn) * kWFloats;
+          if (wa ? k < K - 1 : k > 0 && k < K) w_row(p, ep[k - k0], wa ? -1.0f : 1.0f, r, W + r * kNV);
+        } else {
+          const int q = job - wrows, j = q / kNV, i = q - j * kNV;
+          tile_row(p, t, fam[ks + j - k0], ks + j, i, tiles + j * kBlk + i * kNV);
+        }
+      }
+      __syncthreads();
+      // 2. the tiles of D_k (lower triangle), L_k and the pieces of g_k
+      const int na = ks + gn - 1 < K - 1 ? gn : gn - 1;  // knots with an interval k
+      const int nd = gn * kDUnits, nl = na * kLUnits;
+      for (int it = tid; it < nd + nl + gn * kTiles; it += kThreads) {
+        if (it < nd) {
+          const int j = it / kDUnits, k = ks + j;
+          int u = it - j * kDUnits, ti = 0;
+          while (u > ti) u -= ++ti;
+          d_tile(tiles + j * kBlk, WA + j * kWFloats, WB + j * kWFloats, iv[k - k0 + 1], iv[k - k0], k < K - 1,
+                 k > 0, ti, u, t.D + ((size_t)b * K + k) * kBlk);
+        } else if (it < nd + nl) {
+          const int j = (it - nd) / kLUnits, u = it - nd - j * kLUnits, k = ks + j;
+          l_tile(WB + (j + 1) * kWFloats, WA + j * kWFloats, iv[k - k0 + 1], u / kTiles, u % kTiles,
+                 t.L + ((size_t)b * (K - 1) + k) * kBlk);
+        } else {
+          const int j = (it - nd - nl) / kTiles, c = it - nd - nl - j * kTiles, k = ks + j;
+          g_piece(fam[k - k0].gk, WA + j * kWFloats, WB + j * kWFloats, iv[k - k0 + 1], iv[k - k0], k < K - 1,
+                  k > 0, c, t.g + ((size_t)b * K + k) * kNV);
+        }
+      }
+      __syncthreads();
+    }
+    // the halo: knot k0+n's endpoint terms and interval k0+n-1 start the next chunk
+    if (k0 + n < K) {
+      for (int e = tid; e < kEpFloats; e += kThreads) (&ep[0].rate[0])[e] = (&ep[n].rate[0])[e];
+      for (int e = tid; e < kIvFloats; e += kThreads) (&iv[0].res[0])[e] = (&iv[n].res[0])[e];
+    }
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float sk = sq_knot[0], si = 0.0f;
-    for (int k = 1; k < K; ++k) sk = sk + sq_knot[k];
-    if (K > 1) si = sq_int[0];
-    for (int k = 1; k < K - 1; ++k) si = si + sq_int[k];
-    t.merit[b] = 0.5f * (sk + si);
-  }
+  if (tid == 0) t.merit[b] = 0.5f * (sk + si);
 }
 
-// Warps per block: the fewest rounds of at most kMaxWarps knots, spread
-// evenly (7 warps for K = 13, 25, 33 and 41).
-int warps_for(int K) {
-  const int rounds = (K + kMaxWarps - 1) / kMaxWarps;
-  return (K + rounds - 1) / rounds;
+// Knots per chunk for windows of K knots: the fewest chunks whose shared
+// memory fits two blocks per SM, spread evenly (K = 41: one chunk).
+int chunk_for(int K) {
+  int cmax = 1;
+  while (cmax < K && (size_t)layout(cmax + 1).total * sizeof(float) <= (size_t)kSmemBudget) ++cmax;
+  if (ASM_MAX_CHUNK > 0 && cmax > ASM_MAX_CHUNK) cmax = ASM_MAX_CHUNK;
+  const int chunks = (K + cmax - 1) / cmax;
+  return (K + chunks - 1) / chunks;
 }
 
-size_t smem_for(int K) { return sizeof(WarpSmem) * warps_for(K) + sizeof(float) * 2 * K; }
+size_t smem_for(int K) { return (size_t)layout(chunk_for(K)).total * sizeof(float); }
 
 }  // namespace
 
@@ -815,8 +1110,24 @@ extern "C" const char* assemble_param_layout() { return ASM_SCALARS(ASM_SCALAR_N
 // The tensors' names, in the order of the pointer array `assemble_run` takes.
 extern "C" const char* assemble_tensor_layout() { return ASM_TENSORS(ASM_TENSOR_NAME); }
 
-// Warps per block for windows of K knots.
-extern "C" int assemble_warps(int K) { return K > 0 ? warps_for(K) : 0; }
+// Knots per chunk, and bytes of shared memory per block, for windows of K knots.
+extern "C" int assemble_chunk(int K) { return K > 1 ? chunk_for(K) : 0; }
+extern "C" int assemble_smem_bytes(int K) { return K > 1 ? (int)smem_for(K) : 0; }
+
+// Blocks of the kernel that fit on one SM for windows of K knots (the
+// runtime's occupancy, after the kernel's attributes are set).
+extern "C" int assemble_blocks_per_sm(int K) {
+  if (K < 2) return 0;
+  const int smem = (int)smem_for(K);
+  if (cudaFuncSetAttribute(assemble_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) != cudaSuccess ||
+      cudaFuncSetAttribute(assemble_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared) != cudaSuccess)
+    return -1;
+  int blocks = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, assemble_kernel, kThreads, smem) != cudaSuccess)
+    return -1;
+  return blocks;
+}
 
 // Launches one assembly of B windows of K knots on `stream`, one block per
 // window.  `tensors` holds the pointers of `assemble_tensor_layout()`, every
@@ -840,12 +1151,15 @@ extern "C" int assemble_run(const float* params, int n_params, void* const* tens
     if (tensors[i] == nullptr) return (int)cudaErrorInvalidValue;
     tp[i] = static_cast<float*>(tensors[i]);
   }
+  int C = chunk_for(K);
   const size_t smem = smem_for(K);
   cudaError_t err = cudaFuncSetAttribute(assemble_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(assemble_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
-  void* args[] = {&p, &t, &B, &K};
-  err = cudaLaunchKernel(assemble_kernel, dim3(B), dim3(warps_for(K) * 32), args, smem,
-                         static_cast<cudaStream_t>(stream));
+  void* args[] = {&p, &t, &B, &K, &C};
+  err = cudaLaunchKernel(assemble_kernel, dim3(B), dim3(kThreads), args, smem, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }

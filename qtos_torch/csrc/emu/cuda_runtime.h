@@ -19,6 +19,13 @@
 // The card has 2 SMs that hold 1 block each, so that small batches already
 // walk the grid more than once.
 //
+// With QTOS_EMU_THREAD_ORDER=1 (or -1) in the environment of a launch, the
+// threads of each block run one at a time, in ascending (descending) order
+// of threadIdx.x, each from one __syncthreads to the next: a read that a
+// missing block barrier leaves unordered then reads shared memory, in one
+// of the two orders, before the thread that writes it has run.  Warp
+// barriers and shuffles are not taken in that mode.
+//
 // A launch through the typed cudaLaunchKernel needs nothing more.  For one
 // through the untyped (const void*) launch the including file defines
 // EmuKernelSig, the kernel's signature, before it includes this header; a
@@ -36,6 +43,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <deque>
+#include <memory>
 #include <mutex>
 #include <thread>
 #include <utility>
@@ -101,12 +109,80 @@ struct EmuWarp : EmuBarrier {
 inline thread_local EmuWarp* emu_warp = nullptr;
 inline thread_local EmuBarrier* emu_block = nullptr;
 
-inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp->wait(); }
+// The turns of a block's threads when they run one at a time
+// (QTOS_EMU_THREAD_ORDER): `turn` is the thread that may run; a thread passes it
+// on at each __syncthreads and when it ends.
+struct EmuTurns {
+  std::mutex m;
+  std::unique_ptr<std::condition_variable[]> cv;  // one per thread: a pass wakes only its thread
+  int size = 0, turn = -1, arrived = 0, alive = 0, step = 1;
+  std::vector<char> done;
+
+  int first() const {
+    for (int i = 0; i < size; ++i) {
+      const int t = step > 0 ? i : size - 1 - i;
+      if (!done[t]) return t;
+    }
+    return -1;
+  }
+  int after(int t) const {
+    for (int u = t + step; u >= 0 && u < size; u += step)
+      if (!done[u]) return u;
+    return -1;
+  }
+  void wait_turn(std::unique_lock<std::mutex>& lk, int t) {
+    if (!cv[t].wait_for(lk, std::chrono::seconds(600), [&] { return turn == t; })) {
+      std::fprintf(stderr, "cuda_emu: a block barrier timed out (a thread that missed __syncthreads?)\n");
+      std::abort();
+    }
+  }
+  void start(int t) {
+    std::unique_lock<std::mutex> lk(m);
+    wait_turn(lk, t);
+  }
+  void barrier(int t) {
+    std::unique_lock<std::mutex> lk(m);
+    if (++arrived == alive) {
+      arrived = 0;
+      turn = first();
+    } else {
+      turn = after(t);
+    }
+    if (turn >= 0) cv[turn].notify_one();
+    wait_turn(lk, t);
+  }
+  void finish(int t) {
+    std::unique_lock<std::mutex> lk(m);
+    done[t] = 1;
+    --alive;
+    turn = arrived > 0 && arrived == alive ? (arrived = 0, first()) : after(t);
+    if (turn >= 0) cv[turn].notify_one();
+  }
+};
+inline thread_local EmuTurns* emu_turns = nullptr;
+
+inline void emu_no_turns(const char* what) {
+  if (emu_turns) {
+    std::fprintf(stderr, "cuda_emu: %s is not taken when threads run one at a time\n", what);
+    std::abort();
+  }
+}
+
+inline void __syncwarp(unsigned = 0xffffffffu) {
+  emu_no_turns("__syncwarp");
+  emu_warp->wait();
+}
 // The block's barrier waits longer: one warp may run a whole loop of
 // shuffles while the others wait there.
-inline void __syncthreads() { emu_block->wait(600, "a block barrier (a thread that missed __syncthreads?)"); }
+inline void __syncthreads() {
+  if (emu_turns)
+    emu_turns->barrier((int)threadIdx.x);
+  else
+    emu_block->wait(600, "a block barrier (a thread that missed __syncthreads?)");
+}
 
 inline float __shfl_sync(unsigned, float v, int src) {
+  emu_no_turns("__shfl_sync");
   emu_warp->wait();
   emu_warp->slot[threadIdx.x & 31] = v;
   emu_warp->wait();
@@ -147,6 +223,9 @@ inline void __pipeline_wait_prior(size_t prior) {
     emu_pipe.batches.pop_front();
   }
 }
+
+// st.global.cs: a store that is not read again soon.
+inline void __stcs(float4* p, float4 v) { *p = v; }
 
 inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
 inline long long clock64() {  // nanoseconds where the card counts cycles
@@ -190,11 +269,21 @@ void emu_call(void (*f)(A...), void** args, std::index_sequence<I...>) {
 template <class... A>
 cudaError_t emu_launch(void (*f)(A...), dim3 grid, dim3 block, void** args, size_t smem) {
   if (smem > kEmuSmemBytes || block.x % 32 != 0) return cudaErrorInvalidConfiguration;
+  const char* env = std::getenv("QTOS_EMU_THREAD_ORDER");
+  const int order = env == nullptr || env[0] == '\0' ? 0 : (std::atoi(env) < 0 ? -1 : 1);
   for (unsigned bx = 0; bx < grid.x; ++bx) {
     if (smem) std::memset(emu_smem_base, 0xff, smem);  // NaNs, as uninitialised shared memory may hold
     std::vector<EmuWarp> warps(block.x / 32);
     EmuBarrier block_barrier;
     block_barrier.size = (int)block.x;
+    EmuTurns turns;
+    if (order != 0) {
+      turns.size = turns.alive = (int)block.x;
+      turns.step = order;
+      turns.done.assign(block.x, 0);
+      turns.cv.reset(new std::condition_variable[block.x]);
+      turns.turn = turns.first();
+    }
     std::vector<std::thread> threads;
     for (unsigned t = 0; t < block.x; ++t) {
       threads.emplace_back([&, t] {
@@ -204,11 +293,14 @@ cudaError_t emu_launch(void (*f)(A...), dim3 grid, dim3 block, void** args, size
         gridDim = grid;
         emu_warp = &warps[t / 32];
         emu_block = &block_barrier;
+        emu_turns = turns.size ? &turns : nullptr;
+        if (emu_turns) emu_turns->start((int)t);
         emu_call(f, args, std::index_sequence_for<A...>{});
         if (!emu_pipe.open.empty() || !emu_pipe.batches.empty()) {
           std::fprintf(stderr, "cuda_emu: a thread ended with cp.async copies not waited for\n");
           std::abort();
         }
+        if (emu_turns) emu_turns->finish((int)t);
       });
     }
     for (auto& th : threads) th.join();

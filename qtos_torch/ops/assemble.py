@@ -10,7 +10,10 @@ CUDA tensors only and raises on anything the kernel does not take;
 is `slope_terrain(terrain, cfg.slope_probe_d)`, which the solver builds once
 per pass.
 
-The kernel is compiled with `nvcc` for sm_90a at first use into
+The kernel runs one block of 8 warps per window, its work staged by kind
+(every knot's endpoint terms and family blocks once, then the Gram products
+as 4 x 4 register tiles); csrc/assemble.cu's note says how.  It is compiled
+with `nvcc` for sm_90a at first use into
 `qtos_torch/_build/` (keyed by the source's hash), with `--fmad=false` and
 without fast math, and loaded with ctypes.  Its constants (the weights and
 margins of the `SolverConfig`, the spec's dt, the SOLO12 mass, inertia and
@@ -60,8 +63,10 @@ def load_library(path: str):
     for name in ("assemble_param_layout", "assemble_tensor_layout"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_char_p
-    lib.assemble_warps.argtypes = [ci]
-    lib.assemble_warps.restype = ci
+    for name in ("assemble_chunk", "assemble_smem_bytes", "assemble_blocks_per_sm"):
+        if hasattr(lib, name):  # not in the first design's library
+            getattr(lib, name).argtypes = [ci]
+            getattr(lib, name).restype = ci
     return lib
 
 
@@ -116,6 +121,24 @@ def param_array(lib, dt: float, terrain, cfg) -> np.ndarray:
     return np.concatenate(parts)
 
 
+_packed: dict = {}
+
+
+def _param_array_once(lib, dt: float, terrain, cfg) -> np.ndarray:
+    """`param_array`, packed once per library layout, dt, terrain grid and
+    (frozen, hashable) `SolverConfig`: packing takes ~0.26 ms of host time,
+    more than the kernel at small B, and an LM loop repeats it every
+    iteration.  The array is read only."""
+    key = (lib.assemble_param_layout(), float(dt), float(terrain.resolution), tuple(terrain.origin),
+           tuple(terrain.height.shape), cfg)
+    consts = _packed.get(key)
+    if consts is None:
+        if len(_packed) >= 64:
+            _packed.clear()
+        consts = _packed[key] = param_array(lib, dt, terrain, cfg)
+    return consts
+
+
 def _inputs(x, spec, terrain, aux, slope) -> dict:
     """The kernel's input tensors by name, with the shape each must have."""
     B, K, _ = x.shape
@@ -132,10 +155,13 @@ def _inputs(x, spec, terrain, aux, slope) -> dict:
     )
 
 
-def run(lib, x, spec, terrain, cfg, aux, slope, stream=None):
-    """One launch of the kernel in `lib` on the tensors' own memory: the
-    system of x (B, K, 36).  Returns (D, L, g, merit).  The caller gives the
-    stream (None: the default one) and counts the launch."""
+def prepare(lib, x, spec, terrain, cfg, aux, slope):
+    """Checks and packs one launch of the kernel in `lib` on the system of
+    x (B, K, 36) and allocates its outputs.  Returns (launch, (D, L, g,
+    merit)): `launch(stream)` launches the kernel on the packed inputs and
+    fills the outputs; the caller gives the stream (None: the default one)
+    and counts the launch.  A timing loop calls `launch` alone, so it times
+    the kernel and not this packing."""
     if x.dim() != 3 or x.shape[-1] != NV:
         raise ValueError(f"assembly kernel takes x of shape (B, K, {NV}), got {tuple(x.shape)}")
     if not x.is_contiguous():
@@ -158,23 +184,39 @@ def run(lib, x, spec, terrain, cfg, aux, slope, stream=None):
         if tuple(t.shape) != shape:
             raise ValueError(f"assembly kernel: {name} has shape {tuple(t.shape)}, the batch needs {shape}")
         ptrs[name] = t.contiguous()
-    D = torch.empty((B, K, NV, NV), dtype=torch.float32, device=dev)
-    L = torch.empty((B, K - 1, NV, NV), dtype=torch.float32, device=dev)
-    g = torch.empty((B, K, NV), dtype=torch.float32, device=dev)
-    merit = torch.empty((B,), dtype=torch.float32, device=dev)
+    if ptrs["x"].data_ptr() % 16:  # the kernel copies x into shared memory 16 bytes at a time
+        ptrs["x"] = ptrs["x"].clone()
+    out = (torch.empty((B, K, NV, NV), dtype=torch.float32, device=dev),
+           torch.empty((B, K - 1, NV, NV), dtype=torch.float32, device=dev),
+           torch.empty((B, K, NV), dtype=torch.float32, device=dev),
+           torch.empty((B,), dtype=torch.float32, device=dev))
     if B == 0:
-        return D, L, g, merit
-    ptrs.update(D=D, L=L, g=g, merit=merit)
+        return (lambda stream=None: None), out
+    ptrs.update(zip(("D", "L", "g", "merit"), out))
     names = lib.assemble_tensor_layout().decode().strip(",").split(",")
     if sorted(names) != sorted(ptrs):
         raise RuntimeError(f"assembly kernel takes tensors {names}, the wrapper has {sorted(ptrs)}")
     arr = (ctypes.c_void_p * len(names))(*(ptrs[n].data_ptr() for n in names))
-    consts = param_array(lib, spec.dt, terrain, cfg)
+    consts = _param_array_once(lib, spec.dt, terrain, cfg)
     H, Wd = terrain.height.shape
-    err = lib.assemble_run(consts.ctypes.data, consts.size, ctypes.addressof(arr), len(names), B, K, H, Wd, stream)
-    if err != 0:
-        raise RuntimeError(f"assembly kernel launch failed: CUDA error {err}")
-    return D, L, g, merit
+
+    def launch(stream=None):
+        # `ptrs` keeps the packed tensors alive as long as `launch` is
+        err = lib.assemble_run(consts.ctypes.data, consts.size, ctypes.addressof(arr), len(ptrs), B, K, H, Wd,
+                               stream)
+        if err != 0:
+            raise RuntimeError(f"assembly kernel launch failed: CUDA error {err}")
+
+    return launch, out
+
+
+def run(lib, x, spec, terrain, cfg, aux, slope, stream=None):
+    """One launch of the kernel in `lib` on the tensors' own memory: the
+    system of x (B, K, 36).  Returns (D, L, g, merit).  The caller gives the
+    stream (None: the default one) and counts the launch."""
+    launch, out = prepare(lib, x, spec, terrain, cfg, aux, slope)
+    launch(stream)
+    return out
 
 
 def assemble_kernel(x, spec, terrain, cfg, aux, slope):

@@ -12,16 +12,19 @@ two iterates: the bench distribution's first one (plane x3, goals 0.3-0.8 m,
 family active (`problem(..., "steps")`, the problem of
 tests/test_torch_assemble_emu.py at any size).  It checks that two launches
 on one input agree bit for bit and times both versions with CUDA events at
-the shapes the main path gives the kernel.  One JSON line at the end.
+the shapes the main path gives the kernel: the kernel's launches on inputs
+packed once (`ops.assemble.prepare`), and the wrapper's whole call, whose
+packing on the host sets the time at small B.  One JSON line at the end.
 
 With `--versions` it builds each version of `assemble.cu` (PATH, or a copy of
 it without the lines matching REGEX, or with each match replaced by TEXT, as
 `qtos_torch.tools.check_tick` takes them; PATH may name an earlier version),
-prints each one's registers and spills, whether its outputs at (1024, 41) on
-the bench iterate equal the first version's bit for bit, and its ms per
-launch at (4, 41), (1024, 41) and (8192, 41), timed in turns (v1, v2, ...,
-v2, v1; CUDA events over 10 launches).  An ablation's answers are wrong; its
-time says what the removed work costs.
+prints each one's registers and spills (and, where the version reports them,
+its shared memory and blocks per SM at K=41), whether its outputs equal the
+first version's bit for bit at every shape of `SHAPES` on both iterates, and
+its ms per launch at (4, 41), (1024, 41) and (8192, 41), timed in turns (v1,
+v2, ..., v2, v1; CUDA events over 10 launches on inputs packed once).  An ablation's answers are
+wrong; its time says what the removed work costs.
 
 Tolerance: atol=rtol=2e-4 (tests/test_torch_assemble.py's) plus ROUNDING =
 1e-5 of each entry's rounding scale (`rounding_scales`).  On the perturbed
@@ -50,14 +53,16 @@ from qtos_torch.solver.spec import NV, SolverConfig, default_spec
 from qtos_torch.solver.transcription import initial_guess, knot_aux
 from qtos_torch.terrain import make_terrain
 from qtos_torch.terrain.heightfield import height_at, slope_terrain
+from qtos_torch.tools import assemble_floor
 from qtos_torch.tools.profile_tick import _card
 
 ATOL = RTOL = 2e-4
 ROUNDING = 1e-5
 # The shapes the paths give the kernel: the quick start (1, 33), a replan
 # (4, 41), the feasibility probe (20, 25), the card-vs-CPU solve (64, 41),
-# phases 4 and 9 (1024, 41) and the bench batch (8192, 41).
-SHAPES = [(1, 33), (4, 41), (20, 25), (64, 41), (1024, 41), (8192, 41)]
+# phases 4 and 9 (1024, 41), the bench batch (8192, 41), and the ranks'
+# slices of phase 9's two-card run (3, 13) and (512, 13).
+SHAPES = [(1, 33), (4, 41), (20, 25), (64, 41), (1024, 41), (8192, 41), (3, 13), (512, 13)]
 TIMED = [(4, 41), (1024, 41), (8192, 41)]
 # H100 SXM (NVIDIA data sheet): HBM bandwidth and non-tensor-core float32 rate.
 PEAK_BYTES_PER_S = 3.35e12
@@ -177,8 +182,9 @@ def compare(kind: str, B: int, K: int, device, timed: bool = False) -> dict:
     the card: per output the largest |kernel - plain|, its largest share of
     atol + rtol |plain| (2e-4 each) and of that plus ROUNDING times the
     entry's rounding scale (`rounding_scales`), which decides; whether two
-    launches agree bit for bit; and (``timed``) both versions' ms per call
-    and the bound.  Launches made here are not counted in
+    launches agree bit for bit; and (``timed``) the kernel's ms per launch,
+    the wrapper's per call, the plain version's, the bound and this
+    design's floor.  Launches made here are not counted in
     `assemble_kernel.launches`."""
     p = problem(kind, B, K, device)
     before = asm.assemble_kernel.launches
@@ -201,7 +207,11 @@ def compare(kind: str, B: int, K: int, device, timed: bool = False) -> dict:
                ok=finite and row["bitwise_repeatable"] and max(gated.values()) <= 1.0)
     del out, ref
     if timed:
-        row.update(ms=event_ms(lambda: kernel(p), 10), plain_ms=event_ms(lambda: plain(p), 2), **bound(p))
+        launch, _ = asm.prepare(asm._load(), p["x"], p["specs"], p["terrain"], p["cfg"], p["aux"], p["slope"])
+        stream = torch.cuda.current_stream(device).cuda_stream
+        row.update(ms=event_ms(lambda: launch(stream), 10), call_ms=event_ms(lambda: kernel(p), 10),
+                   plain_ms=event_ms(lambda: plain(p), 2), **bound(p),
+                   **assemble_floor.design_floor(B, K, assemble_floor.max_sm_clock_mhz()))
     asm.assemble_kernel.launches = before
     torch.cuda.empty_cache()
     return row
@@ -223,8 +233,11 @@ def describe(row: dict) -> str:
             f"gate with the rounding scale: {gate}; two launches equal bit for bit {row['bitwise_repeatable']}, "
             f"finite {row['finite']}, ok {row['ok']}")
     if "ms" in row:
-        line += (f"; kernel {row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms by "
-                 f"{row['bound_by']} ({row['bytes'] / 1e9:.3f} GB, {row['flops'] / 1e9:.2f} GFLOP)")
+        line += (f"; kernel {row['ms']:.3f} ms (the wrapper's whole call {row['call_ms']:.3f} ms), plain "
+                 f"{row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms by "
+                 f"{row['bound_by']} ({row['bytes'] / 1e9:.3f} GB, {row['flops'] / 1e9:.2f} GFLOP), this design's floor "
+                 f"{row['floor_ms']:.4f} ms by {row['floor_by']} (float32 {row['fp32_ms']:.4f}, shared memory "
+                 f"{row['smem_ms']:.4f})")
     return line
 
 
@@ -243,27 +256,50 @@ def versions(specs: list, device) -> list:
         rows.append(dict(name=name, source=path, registers=regs, spill_stores=spills))
     stream = torch.cuda.current_stream(device).cuda_stream
     order = list(libs) + list(libs)[::-1]
-    for B, K in TIMED:
-        p = problem("bench", B, K, device)
-        args = (p["x"], p["specs"], p["terrain"], p["cfg"], p["aux"], p["slope"])
-        if (B, K) == (1024, 41):
+    for row in rows:
+        occ = occupancy(libs[row["name"]], 41)
+        row.update(smem_bytes_k41=occ["smem_bytes"], blocks_per_sm_k41=occ["blocks_per_sm"], bitwise_first=True,
+                   bitwise_shapes=[])
+    for B, K in SHAPES:
+        for kind in ("bench", "steps"):
+            p = problem(kind, B, K, device)
+            args = (p["x"], p["specs"], p["terrain"], p["cfg"], p["aux"], p["slope"])
             first = asm.run(libs[order[0]], *args, stream=stream)
             for row in rows:
                 out = asm.run(libs[row["name"]], *args, stream=stream)
-                row["bitwise_first"] = all(torch.equal(a, b) for a, b in zip(first, out))
-            del first, out
+                same = all(torch.equal(a, b) for a, b in zip(first, out))
+                row["bitwise_first"] = row["bitwise_first"] and same
+                row["bitwise_shapes"].append(dict(kind=kind, B=B, K=K, equal=same))
+                del out
+            del first, p, args
+            torch.cuda.empty_cache()
+    for B, K in TIMED:
+        p = problem("bench", B, K, device)
+        args = (p["x"], p["specs"], p["terrain"], p["cfg"], p["aux"], p["slope"])
         times = {}
         for name in order:
-            times.setdefault(name, []).append(event_ms(lambda: asm.run(libs[name], *args, stream=stream), 10))
+            launch = asm.prepare(libs[name], *args)[0]
+            times.setdefault(name, []).append(event_ms(lambda: launch(stream), 10))
+            del launch
         for row in rows:
             row[f"ms_{B}x{K}"] = times[row["name"]]
         torch.cuda.empty_cache()
     for row in rows:
         print(f"# version {row['name']} ({row['source']}): {row['registers']} registers, {row['spill_stores']} B "
-              f"spill stores, bit for bit the first at (1024, 41) {row['bitwise_first']}; ms per launch in turns "
+              f"spill stores, K=41: {row['smem_bytes_k41']} B shared memory per block, {row['blocks_per_sm_k41']} "
+              f"blocks per SM; bit for bit the first at {len(row['bitwise_shapes'])} shapes and iterates "
+              f"{row['bitwise_first']}; ms per launch in turns "
               + ", ".join(f"(B={B}, K={K}) {[round(t, 3) for t in row[f'ms_{B}x{K}']]}" for B, K in TIMED),
               flush=True)
     return rows
+
+
+def occupancy(lib, K: int) -> dict:
+    """Shared memory per block and blocks per SM of the kernel in `lib` for
+    windows of K knots, where the library reports them (None where not)."""
+    if not hasattr(lib, "assemble_blocks_per_sm"):
+        return dict(smem_bytes=None, blocks_per_sm=None)
+    return dict(smem_bytes=lib.assemble_smem_bytes(K), blocks_per_sm=lib.assemble_blocks_per_sm(K))
 
 
 def main(argv=None) -> int:
@@ -285,14 +321,16 @@ def main(argv=None) -> int:
         asm.build(verbose=True)
     regs, spills = ptxas_registers(buf.getvalue())
     print(buf.getvalue().rstrip(), flush=True)
-    print(f"# assemble_kernel: {regs} registers, {spills} B spill stores", flush=True)
+    occ = occupancy(asm._load(), 41)
+    print(f"# assemble_kernel: {regs} registers, {spills} B spill stores; K=41: {occ['smem_bytes']} B shared memory "
+          f"per block, {occ['blocks_per_sm']} blocks per SM", flush=True)
     rows = []
     for shape in args.shapes:
         B, K = (int(v) for v in shape.split("x"))
         for kind in ("bench", "steps"):
             rows.append(compare(kind, B, K, dev, timed=kind == "bench" and (B, K) in TIMED))
             print("# " + describe(rows[-1]), flush=True)
-    print(json.dumps({"check_assemble": rows, "registers": regs, "spill_stores": spills}), flush=True)
+    print(json.dumps({"check_assemble": rows, "registers": regs, "spill_stores": spills, **occ}), flush=True)
     return 0 if all(r["ok"] for r in rows) else 1
 
 

@@ -424,12 +424,13 @@ def test_sharded_solve_over_two_cards():
 # tolerance, plus 1e-5 of each entry's rounding scale (the sum of its terms'
 # magnitudes, qtos_torch/tools/check_assemble.py), at the shapes the paths give it: the quick start (1, 33), a replan
 # (4, 41), the feasibility probe (20, 25), the card-vs-CPU solve (64, 41) and
-# the bench batch (8192, 41); on the bench distribution's first iterate and on
+# the bench batch (8192, 41), and at (2, 45), whose windows run in two chunks
+# of the kernel's shared memory; on the bench distribution's first iterate and on
 # a perturbed one over step terrain with every hinge family active.
 
 
 @pytest.mark.parametrize("kind", ["bench", "steps"])
-@pytest.mark.parametrize("B,K", [(1, 33), (4, 41), (20, 25), (64, 41), (8192, 41)])
+@pytest.mark.parametrize("B,K", [(1, 33), (4, 41), (20, 25), (64, 41), (8192, 41), (2, 45)])
 def test_assemble_kernel_matches_plain(cuda, kind, B, K):
     from qtos_torch.tools import check_assemble
 

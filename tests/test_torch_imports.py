@@ -54,6 +54,7 @@ PORT_MODULES = [
     "qtos_torch.planner.astar",
     "qtos_torch.planner.global_planner",
     "qtos_torch.planner.feasibility",
+    "qtos_torch.tools.assemble_floor",
     "qtos_torch.tools.check_assemble",
     "qtos_torch.tools.check_tick",
     "qtos_torch.tools.compare_btd",
