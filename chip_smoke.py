@@ -14,18 +14,21 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      latency probe (tools/op_cycles.cu) with nvcc for sm_90a, one nvcc each,
      all at once (ptxas report: registers, spills);
   3. BTD kernel vs plain version on random SPD systems (the shapes of the
-     tests and those of the driven paths: B=1, K=33; B=20, K=25; B=4, B=64,
-     B=1024 and B=8192, K=41; B=3 and B=512, K=13; n=36) and on a Levenberg-Marquardt system of the main path;
-     times of the kernel, the plain version, the library Thomas loop, and
-     the bound; the kernel's GB/s against the bound's bytes
+     tests and those of the driven paths: B=1, K=33; B=20, K=25; B=1, B=4,
+     B=64, B=1024 and B=8192, K=41; B=3 and B=512, K=13; n=36) and on a
+     Levenberg-Marquardt system of the main path; times of the kernel, the
+     plain version, the library Thomas loop, and the bound at B=8192, and of
+     the kernel on inputs packed once, the wrapper's call, the plain version
+     and the bound at (4, 41, 36) and (1, 41, 36); the kernel's GB/s against the bound's bytes
      and against the bytes its design moves, its GFLOP/s, registers, shared
      memory per block and resident warps per SM;
   3b. the assembly kernel vs its plain version (tools/check_assemble.py) at
      every shape a path gives it ((1, 33), (4, 41), (20, 25), (64, 41),
-     (1024, 41), (8192, 41), (3, 13), (512, 13)) on the bench distribution's
-     first iterate and on a perturbed iterate over step terrain with every
-     hinge family active, two launches bit for bit; kernel, plain and bound
-     ms at (4, 41), (1024, 41) and (8192, 41), its design's floor
+     (1024, 41), (8192, 41), (3, 13), (512, 13), (1, 41)) on the bench
+     distribution's first iterate and on a perturbed iterate over step
+     terrain with every hinge family active, two launches bit for bit;
+     kernel, plain and bound ms at (1, 41), (4, 41), (1024, 41) and
+     (8192, 41), its design's floor
      (tools/assemble_floor.py), registers, spills, shared memory and blocks
      per SM, beside the first design's recorded numbers;
   4. the main path: solve_batch on the bench distribution (plane x3, K=41,
@@ -62,7 +65,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the bench distribution at B=1024, equal bit for bit to solve_batch,
      its gathered statuses equal to the local ones, and the kernel's
      launches; over two ranks with an uneven batch when the host has two
-     cards.
+     cards;
+  10. the TOWR-window entry point (scripts/towr_deviation_torch.py's
+     `measure`) on the card and on the CPU, from a golden written here (one
+     converged window of phase 4, sampled at 1 kHz): statuses, card vs CPU
+     deviation figures, ms per call, and one launch of each solver kernel
+     per LM iteration (120).
 Phase 4 also profiles one solve_batch call at B=8192 (kernel time by name,
 the BTD kernel's and assembly's shares, the device's idle share).
 The second-last line is {"kernels": [...]}; the last is
@@ -101,9 +109,13 @@ KERNEL_ATOL = 5e-4          # random diagonally dominant systems, O(1) solutions
 # windows (phase 7; its rescue pass gathers all 20), the runner's 4 candidate
 # windows per replan (phase 8), phase 5's B=64, the ranks' slices of phase 9's
 # two-card run (B=5 and 1023 over two ranks, K=13: 3 and 512 each), phase 4's
-# and phase 9's B=1024, and the bench batch (phase 4), which is the one timed.
+# and phase 9's B=1024, the bench batch (phase 4), which is timed, and the
+# TOWR window's single K=41 system (phase 10).
 SHAPES = [(3, 7, 12), (2, 5, 36), (1, 9, 5), (5, 4, 6), (1, 33, 36), (20, 25, 36), (4, 41, 36),
-          (64, 41, 36), (3, 13, 36), (512, 13, 36), (1024, 41, 36), (8192, 41, 36)]
+          (64, 41, 36), (3, 13, 36), (512, 13, 36), (1024, 41, 36), (8192, 41, 36), (1, 41, 36)]
+# The small shapes timed besides the bench batch: a replan's (phase 8) and the
+# TOWR window's (phase 10).
+SMALL_TIMED = [(4, 41, 36), (1, 41, 36)]
 
 
 def _synced(dev) -> float:
@@ -849,6 +861,61 @@ def phase_sharded(dev, card, B=1024, two_rank_batches=(5, 1023)) -> int:
     return {"btd": launches, "assemble": asm_launches}
 
 
+# Card vs CPU on the TOWR-window entry point: both solve the same float32 NLP
+# for 120 LM iterations from the same golden window.  The goal pins end_dev
+# (2.5e-6 m apart on an H100), but the interior is a feasibility manifold on
+# which rounding moves the converged point: com_rms parted by 5.5e-4 m there,
+# and by 5.2e-4 m between two CPUs.  The gate is 1 mm.
+TOWR_GATE_M = 1e-3
+
+
+def phase_towr(dev, card, golden_table) -> dict:
+    """Phase 10: `scripts/towr_deviation_torch.py`'s `measure` on the card and
+    on the CPU, from a golden written here: `golden_table` (2501, 37), one
+    converged window of phase 4's bench solve (K=41, 2.5 s) sampled at 1 kHz,
+    saved as CSV in a temporary directory.  Its schedule comes from the
+    table's force profile, not from `trot_schedule`, and the solve runs 120
+    LM iterations at B=1.  Returns the solver kernels' launches on the card."""
+    import tempfile
+
+    import numpy as np
+
+    from qtos_torch.ops.btd import btd_solve
+    from scripts import towr_deviation_torch as towr
+
+    t0 = time.time()
+    on_card = dev.type == "cuda"          # main() always passes the card
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        golden = os.path.join(tmp, "golden.csv")
+        np.savetxt(golden, golden_table, delimiter=",")
+        for name, d in (("card", dev), ("cpu", "cpu")):
+            _zero_solver_counts()
+            t1 = _synced(dev)
+            fig, res, spec = towr.measure(golden=golden, device=d)
+            t2 = _synced(dev)
+            out[name] = dict(fig=fig, ms=(t2 - t1) * 1e3, iters=int(res.iters), btd=btd_solve.launches,
+                             asm=_asm_launches(), double_support=int((spec.schedule.contact.sum(-1) == 4).sum()))
+    card_run, cpu_run = out["card"], out["cpu"]
+    gaps = {k: abs(card_run["fig"][k] - cpu_run["fig"][k]) for k in ("com_rms", "end_dev")}
+    line = (f"# phase 10 TOWR window (measure, K=41, 2.5 s, {card_run['double_support']} knots of four-foot "
+            f"support from the force profile, B=1) on {card}: " + "; ".join(
+                f"{name}: status {r['fig']['status']}, max_violation {r['fig']['max_violation']:.3e}, com_rms "
+                f"{r['fig']['com_rms']:.4e}, end_dev {r['fig']['end_dev']:.4e}, feet_rms {r['fig']['feet_rms']:.4e} m, "
+                f"{r['iters']} LM iterations, btd and assembly launches {r['btd']} and {r['asm']}, "
+                f"{r['ms']:.1f} ms per measure" for name, r in out.items())
+            + f"; card vs CPU com_rms {gaps['com_rms']:.2e}, end_dev {gaps['end_dev']:.2e} m (gate {TOWR_GATE_M})")
+    ok = (all(r["fig"]["status"] == 0 and r["fig"]["max_violation"] < 3e-3
+              and all(math.isfinite(v) for v in r["fig"].values()) for r in out.values())
+          and all(g <= TOWR_GATE_M for g in gaps.values())
+          and cpu_run["btd"] == cpu_run["asm"] == 0
+          and (not on_card or card_run["btd"] == card_run["asm"] == card_run["iters"] == 120))
+    if not ok:
+        fail(line)
+    log(line + f" (phase 10 done in {time.time() - t0:.1f} s)")
+    return {"btd": card_run["btd"], "assemble": card_run["asm"]}
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -970,8 +1037,27 @@ def main() -> None:
     def rel_residual(D, L, x, b):
         return float(torch.linalg.norm(block_tridiag_matvec(D, L, x) - b) / torch.linalg.norm(b))
 
+    def packed_launch_ms(D, L, b):
+        """ms per launch of the BTD kernel alone, on inputs packed once (the
+        output and the factors' scratch allocated once, no wrapper)."""
+        lib = btd_mod._load()
+        B, K, n = b.shape
+        x = torch.empty_like(b)
+        scratch = torch.empty((B, K - 1, lib.btd_packed_floats(n)), dtype=D.dtype, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch():
+            return lib.btd_solve_f32(D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(),
+                                     B, K, n, stream)
+
+        err = launch()
+        if err != 0:
+            fail(f"phase 3: btd kernel launch failed at ({B}, {K}, {n}): CUDA error {err}")
+        return event_ms(launch, 20)
+
     t0 = time.time()
     kernel_row = None
+    small_rows = {}
     max_err_all = 0.0
     for i, (B, K, n) in enumerate(SHAPES):
         D, L, b, xt = spd_system(B, K, n, i)
@@ -1007,6 +1093,16 @@ def main() -> None:
                      f"{flops / ms / 1e6:.1f} GFLOP/s; {regs} registers per thread, "
                      f"{occ['smem_per_block']} B shared memory per block, "
                      f"{occ['warps_per_sm']} resident warps per SM")
+        if (B, K, n) in SMALL_TIMED:
+            bms, bby, nbytes, flops = bound(B, K, n)
+            small_rows[B] = dict(ms=packed_launch_ms(D, L, b), call_ms=event_ms(lambda: btd_solve(D, L, b), 20),
+                                 plain_ms=event_ms(lambda: block_tridiag_solve(D, L, b), 3), bound_ms=bms,
+                                 bound_by=bby)
+            r = small_rows[B]
+            line += (f"\n# phase 3 times B={B} K={K} n={n} on {card}: kernel {r['ms']:.4f} ms on inputs packed once "
+                     f"(the wrapper's whole call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, bound "
+                     f"{bms:.5f} ms by {bby} ({nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP), "
+                     f"{r['ms'] / bms:.0f}x the bound")
         log(line)
         del D, L, b, xt, x, xp
     torch.cuda.empty_cache()
@@ -1044,7 +1140,7 @@ def main() -> None:
     # ---- 3b. assembly kernel vs plain --------------------------------------
     # Every shape a path gives the kernel, on the bench distribution's first
     # iterate and on a perturbed iterate over step terrain with every hinge
-    # family active; times at (4, 41), (1024, 41) and (8192, 41).
+    # family active; times at (1, 41), (4, 41), (1024, 41) and (8192, 41).
     t0 = time.time()
     asm_rows = []
     for shape in check_assemble.SHAPES:  # phase 4 goes on with this function's K
@@ -1079,7 +1175,9 @@ def main() -> None:
                    bound_ms_b1024=timed[1024]["bound_ms"], floor_ms_b1024=timed[1024]["floor_ms"],
                    ms_b4=timed[4]["ms"], call_ms_b4=timed[4]["call_ms"], plain_ms_b4=timed[4]["plain_ms"],
                    bound_ms_b4=timed[4]["bound_ms"],
-                   floor_ms_b4=timed[4]["floor_ms"], smem_bytes=occ["smem_bytes"],
+                   floor_ms_b4=timed[4]["floor_ms"],
+                   ms_b1=timed[1]["ms"], call_ms_b1=timed[1]["call_ms"], plain_ms_b1=timed[1]["plain_ms"],
+                   bound_ms_b1=timed[1]["bound_ms"], floor_ms_b1=timed[1]["floor_ms"], smem_bytes=occ["smem_bytes"],
                    blocks_per_sm=occ["blocks_per_sm"])
 
     # ---- 4. main path ----------------------------------------------------
@@ -1115,6 +1213,7 @@ def main() -> None:
         main_launches, main_asm_launches = launches, asm_launches
         if B == 1024:
             played = (res.x[::4].clone(), index_spec(specs, slice(None, None, 4)))
+            golden_table = table.cpu().numpy()           # phase 10's golden window
 
     # where the time goes at B=8192: one assembly and one solve
     x0 = initial_guess(specs, terrain, cfg)
@@ -1158,6 +1257,7 @@ def main() -> None:
     phase_planner(dev, card)
     runner_launches = phase_runner(dev, card)
     sharded_launches = phase_sharded(dev, card)
+    towr_launches = phase_towr(dev, card, golden_table)
 
     # ---- result lines ----------------------------------------------------
     row = dict(
@@ -1170,9 +1270,11 @@ def main() -> None:
         launches_replan=runner_launches["replan"],
         launches_runner=runner_launches["runner"],
         launches_sharded=sharded_launches["btd"],
+        launches_towr=towr_launches["btd"],
         max_abs_err=max_err_all,
         max_err=max_err_all,
         **kernel_row,
+        **{f"{key}_b{B}": v for B, r in small_rows.items() for key, v in r.items()},
     )
     asm_row = dict(
         name="assemble",
@@ -1185,6 +1287,7 @@ def main() -> None:
         launches_replan=runner_launches["asm_replan"],
         launches_runner=runner_launches["asm_runner"],
         launches_sharded=sharded_launches["assemble"],
+        launches_towr=towr_launches["assemble"],
         device_launches_per_solve=tick_row.pop("asm_device_launches_per_solve"),
         registers=asm_regs,
         spill_stores_bytes=asm_spills,

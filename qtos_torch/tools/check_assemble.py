@@ -60,10 +60,11 @@ ATOL = RTOL = 2e-4
 ROUNDING = 1e-5
 # The shapes the paths give the kernel: the quick start (1, 33), a replan
 # (4, 41), the feasibility probe (20, 25), the card-vs-CPU solve (64, 41),
-# phases 4 and 9 (1024, 41), the bench batch (8192, 41), and the ranks'
-# slices of phase 9's two-card run (3, 13) and (512, 13).
-SHAPES = [(1, 33), (4, 41), (20, 25), (64, 41), (1024, 41), (8192, 41), (3, 13), (512, 13)]
-TIMED = [(4, 41), (1024, 41), (8192, 41)]
+# phases 4 and 9 (1024, 41), the bench batch (8192, 41), the ranks'
+# slices of phase 9's two-card run (3, 13) and (512, 13), and the TOWR
+# window's solve (1, 41).
+SHAPES = [(1, 33), (4, 41), (20, 25), (64, 41), (1024, 41), (8192, 41), (3, 13), (512, 13), (1, 41)]
+TIMED = [(1, 41), (4, 41), (1024, 41), (8192, 41)]
 # H100 SXM (NVIDIA data sheet): HBM bandwidth and non-tensor-core float32 rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12

@@ -50,6 +50,8 @@ PORT_MODULES = [
     "qtos_torch.terrain.tiles",
     "qtos_torch.sim.motor",
     "qtos_torch.sim.engine",
+    "qtos_torch.sim.pybullet_adapter",
+    "qtos_torch.sim.pybullet_ui",
     "qtos_torch.control.loop",
     "qtos_torch.planner.astar",
     "qtos_torch.planner.global_planner",
@@ -68,7 +70,7 @@ PORT_MODULES = [
 
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py")]
-    out += [os.path.join(REPO, "scripts", f"{name}_torch.py") for name in ("main", "record", "sweep")]
+    out += [os.path.join(REPO, "scripts", f"{name}_torch.py") for name in ("main", "record", "sweep", "towr_deviation")]
     for root, _, files in os.walk(os.path.join(REPO, "qtos_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
@@ -115,3 +117,32 @@ def test_module_list_covers_the_package():
         if rel.startswith("qtos_torch") and not rel.endswith("__init__.py"):
             found.add(rel[:-3].replace(os.sep, "."))
     assert found == set(PORT_MODULES)
+
+
+def test_towr_deviation_script_leaves_jax_out(tmp_path):
+    """scripts/towr_deviation_torch.py, loaded as a file and run through
+    `measure` on the CPU (a 0.2 s window of a standing table, one LM
+    iteration), pulls in neither JAX nor qtos_tpu."""
+    import numpy as np
+
+    table = np.zeros((301, 37))
+    table[:, 0] = np.arange(301) * 1e-3
+    table[:, 3] = 0.24
+    table[:, 7:19] = np.tile([[0.21, 0.19, 0.0], [0.21, -0.19, 0.0], [-0.21, 0.19, 0.0], [-0.21, -0.19, 0.0]],
+                             (301, 1, 1)).reshape(301, 12)
+    table[:, 27:37:3] = 7.4
+    golden = tmp_path / "golden.csv"
+    np.savetxt(golden, table, delimiter=",")
+    code = (
+        "import runpy, sys\n"
+        "mod = runpy.run_path(sys.argv[1])\n"
+        "out, res, spec = mod['measure'](0.2, 5, 1, 0, golden=sys.argv[2], device='cpu')\n"
+        "assert set(out) >= {'status', 'com_rms', 'end_dev'}, out\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code, os.path.join(REPO, "scripts", "towr_deviation_torch.py"),
+                           str(golden)], cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=""),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
