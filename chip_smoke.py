@@ -17,9 +17,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      tests and those of the driven paths: B=1, K=33; B=20, K=25; B=1, B=4,
      B=64, B=1024 and B=8192, K=41; B=3 and B=512, K=13; n=36) and on a
      Levenberg-Marquardt system of the main path; times of the kernel, the
-     plain version, the library Thomas loop, and the bound at B=8192, and of
-     the kernel on inputs packed once, the wrapper's call, the plain version
-     and the bound at (4, 41, 36) and (1, 41, 36); the kernel's GB/s against the bound's bytes
+     plain version, the library Thomas loop (over torch.linalg.cholesky and
+     over cholesky_ex, each call's time), and the bound at B=8192, and of
+     the kernel on inputs packed once, the wrapper's call, the plain version,
+     the library loop over cholesky_ex, the dense system's cholesky_ex and
+     cholesky_solve, and the bound at (4, 41, 36) and (1, 41, 36), the
+     library calls held to the plain version; the kernel's GB/s against the bound's bytes
      and against the bytes its design moves, its GFLOP/s, registers, shared
      memory per block and resident warps per SM;
   3b. the assembly kernel vs its plain version (tools/check_assemble.py) at
@@ -33,8 +36,9 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      per SM, beside the first design's recorded numbers;
   4. the main path: solve_batch on the bench distribution (plane x3, K=41,
      goals 0.3..0.8, max_iters=3, rescue_iters=12) at B=1024 and B=8192,
-     with both solver kernels' launch counters (one launch of each per LM
-     iteration), convergence and the 1 kHz table;
+     timed by bench_torch.time_solves (a warm-up, then 5 calls: min / median
+     / max), with both solver kernels' launch counters in each call (one
+     launch of each per LM iteration), convergence and the 1 kHz table;
   5. the port on CUDA against the port on CPU at B=64, K=41;
   6. physics playback, through the tick kernel: (a) the library quick start
      (plan, solve, sample, 500 warm-up ticks, 1 kHz playback) on the card;
@@ -70,7 +74,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      `measure`) on the card and on the CPU, from a golden written here (one
      converged window of phase 4, sampled at 1 kHz): statuses, card vs CPU
      deviation figures, ms per call, and one launch of each solver kernel
-     per LM iteration (120).
+     per LM iteration (120);
+  11. the benchmark: `python3 bench_torch.py` in a child process at its
+     default sizes; its exit code, convergence, launches and last line
+     (bench.py's four keys).
 Phase 4 also profiles one solve_batch call at B=8192 (kernel time by name,
 the BTD kernel's and assembly's shares, the device's idle share).
 The second-last line is {"kernels": [...]}; the last is
@@ -86,6 +93,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -916,6 +924,48 @@ def phase_towr(dev, card, golden_table) -> dict:
     return {"btd": card_run["btd"], "assemble": card_run["asm"]}
 
 
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]          # bench.py's last line
+
+
+def phase_bench(card) -> str:
+    """Phase 11: `python3 bench_torch.py` in a child process with the
+    default sizes (B=1024 and 8192).  It must exit 0, print one `# B=`
+    line per size with every scenario converged and each kernel launched
+    once per LM iteration in every timed call, and end in a line with
+    exactly `bench.py`'s keys.  Returns that line."""
+    t0 = time.time()
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items() if k != "QTOS_BENCH_BATCHES"}
+    child = subprocess.run([sys.executable, os.path.join(here, "bench_torch.py")], cwd=here, env=env,
+                           capture_output=True, text=True, timeout=600)
+    lines = child.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(f"# phase 11 bench_torch.py: {line.lstrip('# ')}")
+    sizes = [line for line in lines if line.startswith("# B=")]
+    try:
+        out = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        out = None
+
+    def good(line):
+        conv = re.search(r"\((\d+)/(\d+) converged\)", line)
+        counts = re.search(r"btd \[([\d, ]+)\], assembly \[([\d, ]+)\]", line)
+        if not (conv and counts) or conv.group(1) != conv.group(2):
+            return False
+        btd, asm = ([int(v) for v in g.split(",")] for g in counts.groups())
+        return btd == asm and min(btd) >= 3
+
+    ok = (child.returncode == 0 and isinstance(out, dict) and list(out) == BENCH_KEYS
+          and out["metric"] == "gait_nlp_solves_per_s" and out["value"] > 0
+          and len(sizes) == 2 and all(good(line) for line in sizes))
+    if not ok:
+        fail(f"phase 11: bench_torch.py exited {child.returncode} (gates: exit 0, two sizes, every scenario "
+             f"converged, one launch of each kernel per LM iteration, bench.py's keys):\n{child.stdout[-3000:]}\n"
+             f"{child.stderr[-3000:]}")
+    log(f"# phase 11 bench_torch.py on {card}, last line: {lines[-1]} ({time.time() - t0:.1f} s)")
+    return lines[-1]
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -923,13 +973,14 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
 
+    import bench_torch
     import qtos_torch  # noqa: F401  (sets TF32 off)
     from qtos_torch.ops import assemble as asm_mod
     from qtos_torch.ops import btd as btd_mod
     from qtos_torch.ops import tick as tick_mod
     from qtos_torch.ops.btd import btd_solve
     from qtos_torch.ops.tridiag import block_tridiag_matvec, block_tridiag_solve
-    from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve_batch
+    from qtos_torch.solver import default_spec, sample_trajectory, solve_batch
     from qtos_torch.solver.assemble import assemble
     from qtos_torch.solver.spec import index_spec
     from qtos_torch.solver.transcription import initial_guess, knot_aux
@@ -986,17 +1037,37 @@ def main() -> None:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / reps
 
-    def library_thomas(D, L, b):
-        """Block Thomas over torch.linalg.cholesky / torch.cholesky_solve:
-        the library yardstick (the port never calls it)."""
+    def event_ms_calls(fn, reps):
+        """ms of each of `reps` calls after a warm-up, by CUDA events."""
+        fn()
+        torch.cuda.synchronize()
+        out = []
+        for _ in range(reps):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            out.append(start.elapsed_time(end))
+        return out
+
+    def cholesky_ex(A):
+        """The factor alone: no check of `info`, so no wait for the host."""
+        return torch.linalg.cholesky_ex(A).L
+
+    def library_thomas(D, L, b, chol=torch.linalg.cholesky):
+        """Block Thomas over `chol` (torch.linalg.cholesky, which reads each
+        factorisation's `info` back to the host, or `cholesky_ex`) and
+        torch.cholesky_solve: the library yardstick (the port never calls
+        it)."""
         K = D.shape[1]
-        Cs, ys = [torch.linalg.cholesky(D[:, 0])], [b[:, 0, :, None]]
+        Cs, ys = [chol(D[:, 0])], [b[:, 0, :, None]]
         for k in range(1, K):
             Lk = L[:, k - 1]
             Wt = torch.cholesky_solve(Lk.transpose(-1, -2), Cs[-1])
             u = torch.cholesky_solve(ys[-1], Cs[-1])
             ys.append(b[:, k, :, None] - Lk @ u)
-            Cs.append(torch.linalg.cholesky(D[:, k] - Lk @ Wt))
+            Cs.append(chol(D[:, k] - Lk @ Wt))
         xs = [None] * K
         xn = torch.cholesky_solve(ys[-1], Cs[-1])
         xs[-1] = xn
@@ -1005,13 +1076,23 @@ def main() -> None:
             xs[k] = xn
         return torch.stack(xs, 1)[..., 0]
 
+    def dense_system(D, L):
+        """H of (B, K n, K n): the same block-tridiagonal system, dense."""
+        B, K, n, _ = D.shape
+        H = torch.zeros((B, K, n, K, n), device=D.device)
+        for k in range(K):
+            H[:, k, :, k, :] = D[:, k]
+        for k in range(K - 1):
+            H[:, k + 1, :, k, :] = L[:, k]
+            H[:, k, :, k + 1, :] = L[:, k].transpose(-1, -2)
+        return H.reshape(B, K * n, K * n)
+
+    def dense_solve(H, b):
+        """One dense Cholesky and solve of H x = b (b (B, K, n))."""
+        return torch.cholesky_solve(b.reshape(b.shape[0], -1, 1), cholesky_ex(H)).reshape(b.shape)
+
     def bound(B, K, n):
-        nbytes = 4 * (B * K * n * n + B * (K - 1) * n * n + 2 * B * K * n)
-        per = (K * (n**3 / 3 + 4 * n * n)               # Cholesky + two vector solves
-               + (K - 1) * ((n + 1) * n * n              # M C^T = L and C z = y
-                            + n * n * (n + 1)            # S_k = D_k - M M^T (lower)
-                            + 4 * n * n))                # M z and L^T x
-        flops = B * per
+        nbytes, flops = btd_mod.work(B, K, n)
         t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
@@ -1076,14 +1157,23 @@ def main() -> None:
         if (B, K, n) == (8192, 41, 36):
             ms = event_ms(lambda: btd_solve(D, L, b), 10)
             plain_ms = event_ms(lambda: block_tridiag_solve(D, L, b), 1)
-            lib_ms = event_ms(lambda: library_thomas(D, L, b), 3)
+            lib_calls = event_ms_calls(lambda: library_thomas(D, L, b), 3)
+            lib_ex_calls = event_ms_calls(lambda: library_thomas(D, L, b, cholesky_ex), 3)
+            lib_ms, lib_ex_ms = sum(lib_calls) / 3, sum(lib_ex_calls) / 3
+            lib_err = float((library_thomas(D, L, b, cholesky_ex) - xp).abs().max())
             xl = library_thomas(D, L, b)
             bms, bby, nbytes, flops = bound(B, K, n)
             line += (f"\n# phase 3 times B={B} K={K} n={n} on {card}: kernel {ms:.3f} ms, "
                      f"plain {plain_ms:.3f} ms, library {lib_ms:.3f} ms "
-                     f"(library vs true x {float((xl - xt).abs().max()):.3e}), "
+                     f"(calls {', '.join(f'{t:.1f}' for t in lib_calls)}; "
+                     f"library vs true x {float((xl - xt).abs().max()):.3e}), "
+                     f"library with cholesky_ex {lib_ex_ms:.3f} ms (calls "
+                     f"{', '.join(f'{t:.1f}' for t in lib_ex_calls)}; vs plain x {lib_err:.3e}), "
                      f"bound {bms:.3f} ms by {bby} ({nbytes / 1e9:.3f} GB, {flops / 1e9:.2f} GFLOP)")
-            kernel_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms, bound_by=bby)
+            if not lib_err <= KERNEL_ATOL:
+                fail(line + f": the library loop with cholesky_ex exceeds atol {KERNEL_ATOL}")
+            kernel_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_ex_ms=lib_ex_ms, bound_ms=bms,
+                              bound_by=bby)
             occ = btd_mod.occupancy(n)
             dbytes = design_bytes(B, K, n)
             line += (f"\n# phase 3 rates B={B} K={K} n={n} on {card}: "
@@ -1095,24 +1185,32 @@ def main() -> None:
                      f"{occ['warps_per_sm']} resident warps per SM")
         if (B, K, n) in SMALL_TIMED:
             bms, bby, nbytes, flops = bound(B, K, n)
+            H = dense_system(D, L)                     # built once, outside the timing
+            lib_err = float((library_thomas(D, L, b, cholesky_ex) - xp).abs().max())
+            dense_err = float((dense_solve(H, b) - xp).abs().max())
             small_rows[B] = dict(ms=packed_launch_ms(D, L, b), call_ms=event_ms(lambda: btd_solve(D, L, b), 20),
-                                 plain_ms=event_ms(lambda: block_tridiag_solve(D, L, b), 3), bound_ms=bms,
-                                 bound_by=bby)
+                                 plain_ms=event_ms(lambda: block_tridiag_solve(D, L, b), 3),
+                                 library_ms=event_ms(lambda: library_thomas(D, L, b, cholesky_ex), 3),
+                                 dense_ms=event_ms(lambda: dense_solve(H, b), 5), bound_ms=bms, bound_by=bby)
+            del H
             r = small_rows[B]
             line += (f"\n# phase 3 times B={B} K={K} n={n} on {card}: kernel {r['ms']:.4f} ms on inputs packed once "
-                     f"(the wrapper's whole call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, bound "
-                     f"{bms:.5f} ms by {bby} ({nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP), "
+                     f"(the wrapper's whole call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, library "
+                     f"loop with cholesky_ex {r['library_ms']:.3f} ms (vs plain x {lib_err:.3e}), dense "
+                     f"cholesky_ex + cholesky_solve on ({B}, {K * n}, {K * n}) {r['dense_ms']:.3f} ms (vs plain x "
+                     f"{dense_err:.3e}), bound {bms:.5f} ms by {bby} ({nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP), "
                      f"{r['ms'] / bms:.0f}x the bound")
+            if not (lib_err <= KERNEL_ATOL and dense_err <= KERNEL_ATOL):
+                fail(line + f": a library call exceeds atol {KERNEL_ATOL} against the plain version")
         log(line)
         del D, L, b, xt, x, xp
     torch.cuda.empty_cache()
 
     # An LM system of the main path: first-iteration system at the bench
     # distribution, damped as solve_batch damps it.
-    terrain = make_terrain(["plane"] * 3)
-    cfg = SolverConfig(max_iters=3, rescue_iters=12)
-    K = 41
-    specs = default_spec(terrain, goal_xy=(torch.linspace(0.3, 0.8, 8192, device=dev), 0.0), K=K)
+    specs, terrain = bench_torch.build_specs(8192, dev)
+    cfg = bench_torch.solver_config()
+    K = bench_torch.K
     x0 = initial_guess(specs, terrain, cfg)
     Dm, Lm, gm, _ = assemble(x0, specs, terrain, cfg, knot_aux(specs, terrain, cfg))
     lm = cfg.lm_init * cfg.lm_down
@@ -1185,24 +1283,22 @@ def main() -> None:
     main_launches = main_asm_launches = None
     played = None
     for B in (1024, 8192):
-        goals = torch.linspace(0.3, 0.8, B, device=dev)
-        specs = default_spec(terrain, goal_xy=(goals, 0.0), K=K)
-        res = solve_batch(specs, terrain, cfg)               # warm-up
-        torch.cuda.synchronize()
+        specs, terrain = bench_torch.build_specs(B, dev)
         torch.cuda.reset_peak_memory_stats()
-        _zero_solver_counts()
-        t1 = time.perf_counter()
-        res = solve_batch(specs, terrain, cfg)
-        n_conv = int((res.status == 0).sum())               # host read ends the timing
-        dt = time.perf_counter() - t1
-        launches, asm_launches = btd_solve.launches, _asm_launches()
+        # a warm-up call, then REPEATS timed calls, each ended by a host read
+        # of the statuses; the counts are set to 0 before each call
+        t = bench_torch.time_solves(specs, terrain, cfg)
+        res, s = t.pop("result"), t["seconds"]
+        n_conv, med = t["converged"], statistics.median(s)
+        launches, asm_launches = t["btd_launches"][-1], t["assemble_launches"][-1]
         peak = torch.cuda.max_memory_allocated() / 2**30
-        log(f"# phase 4 B={B}: {dt:.3f} s -> {B / dt:.1f} solves/s ({n_conv}/{B} converged), "
-            f"btd launches {launches}, assembly launches {asm_launches}, "
+        log(f"# phase 4 B={B}: median {med:.3f} s -> {B / med:.1f} solves/s ({n_conv}/{B} converged in every call), "
+            f"{len(s)} calls min / median / max {min(s):.4f} / {med:.4f} / {max(s):.4f} s, "
+            f"btd launches per call {t['btd_launches']}, assembly launches per call {t['assemble_launches']}, "
             f"max violation {float(res.max_violation.max()):.3e}, peak memory {peak:.2f} GiB on {card}")
-        if not launches == asm_launches >= cfg.max_iters:
-            fail(f"the main path launched the BTD and assembly kernels {launches} and {asm_launches} times, "
-                 f"not one each per LM iteration (>= max_iters {cfg.max_iters})")
+        if not all(a == b >= cfg.max_iters for a, b in zip(t["btd_launches"], t["assemble_launches"])):
+            fail(f"the main path launched the BTD and assembly kernels {t['btd_launches']} and "
+                 f"{t['assemble_launches']} times, not one each per LM iteration (>= max_iters {cfg.max_iters})")
         if n_conv != B:
             fail(f"{B - n_conv}/{B} scenarios did not converge")
         if not bool(torch.isfinite(res.x).all()):
@@ -1258,6 +1354,8 @@ def main() -> None:
     runner_launches = phase_runner(dev, card)
     sharded_launches = phase_sharded(dev, card)
     towr_launches = phase_towr(dev, card, golden_table)
+    torch.cuda.empty_cache()                      # the child process needs the card's memory
+    phase_bench(card)
 
     # ---- result lines ----------------------------------------------------
     row = dict(

@@ -99,6 +99,18 @@ def occupancy(n: int) -> dict:
     return {"warps_per_sm": warps, "smem_per_block": int(lib.btd_smem_bytes(n))}
 
 
+def work(B: int, K: int, n: int) -> tuple:
+    """(bytes, flops) that one solve at (B, K, n) must do, whatever the
+    kernel: D, L and b read once and x written once; per scenario K Cholesky
+    factorisations and two vector solves, and per sub-diagonal block the
+    solves M C^T = L and C z = y, the lower triangle of S = D - M M^T, and
+    the products M z and L^T x."""
+    nbytes = 4 * (B * K * n * n + B * (K - 1) * n * n + 2 * B * K * n)
+    per = (K * (n**3 / 3 + 4 * n * n)
+           + (K - 1) * ((n + 1) * n * n + n * n * (n + 1) + 4 * n * n))
+    return nbytes, B * per
+
+
 def _check(D, L, b):
     if not (D.dtype == L.dtype == b.dtype == torch.float32):
         raise TypeError(f"btd_solve takes float32, got {D.dtype}, {L.dtype}, {b.dtype}")

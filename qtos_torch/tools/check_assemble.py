@@ -135,19 +135,24 @@ def kernel(p: dict):
     return asm.assemble_kernel(p["x"], p["specs"], p["terrain"], p["cfg"], p["aux"], p["slope"])
 
 
+def gram_flops(B: int, K: int) -> int:
+    """Operations of one assembly at (B, K): the multiply-adds of the three
+    12-row Gram products and two matrix-vector products of every interval
+    (the closed forms, a few percent more, are left out)."""
+    return B * (K - 1) * 2 * (3 * NV * NV * 12 + 2 * NV * 12)
+
+
 def bound(p: dict) -> dict:
     """The least time the card could take for one assembly of this problem:
     each input read once (x, the per-knot aux and contacts, the per-window
-    start and goal, both grids), each output written once, against the
-    multiply-adds of the three 12-row Gram products and two matrix-vector
-    products of every interval (the closed forms, a few percent more, are
-    left out)."""
+    start and goal, both grids), each output written once, against
+    `gram_flops`."""
     B, K, _ = p["x"].shape
     hw = p["terrain"].height.numel()
     inputs = B * K * (NV + 4 * 7) + K * 2 + B * 28 + 2 * hw
     outputs = B * K * NV * NV + B * (K - 1) * NV * NV + B * K * NV + B
     nbytes = 4 * (inputs + outputs)
-    flops = B * (K - 1) * 2 * (3 * NV * NV * 12 + 2 * NV * 12)
+    flops = gram_flops(B, K)
     t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S * 1e3, flops / PEAK_F32_FLOPS * 1e3
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations",
                 bytes=nbytes, flops=flops)

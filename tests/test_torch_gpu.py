@@ -502,3 +502,21 @@ def test_assemble_kernel_rejects_bad_inputs(cuda):
     cpu_terrain = map_tensors(p["terrain"], lambda t: t.cpu())
     with pytest.raises(ValueError, match="different devices"):
         assemble_kernel(p["x"], p["specs"], cpu_terrain, p["cfg"], p["aux"], p["slope"])
+
+
+def test_bench_time_solves_on_card(cuda):
+    """bench_torch.time_solves on the card at B=64: every scenario converged
+    in every call, and one launch of each solver kernel per LM iteration."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.abspath(os.path.join(os.path.dirname(__file__), "..")))
+    try:
+        import bench_torch
+    finally:
+        sys.path.pop(0)
+    specs, terrain = bench_torch.build_specs(64, cuda)
+    cfg = bench_torch.solver_config()
+    t = bench_torch.time_solves(specs, terrain, cfg, repeats=2)
+    assert t["B"] == 64 and t["converged"] == 64 and len(t["seconds"]) == 2
+    assert t["btd_launches"] == t["assemble_launches"] == [cfg.max_iters] * 2

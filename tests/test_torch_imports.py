@@ -1,5 +1,5 @@
-"""Import hygiene of the port: qtos_torch and chip_smoke import neither JAX,
-flax nor qtos_tpu."""
+"""Import hygiene of the port: qtos_torch, chip_smoke and bench_torch import
+neither JAX, flax nor qtos_tpu."""
 
 import ast
 import os
@@ -69,14 +69,14 @@ PORT_MODULES = [
 
 
 def _port_sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py")]
     out += [os.path.join(REPO, "scripts", f"{name}_torch.py") for name in ("main", "record", "sweep", "towr_deviation")]
     for root, _, files in os.walk(os.path.join(REPO, "qtos_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
 
 
-@pytest.mark.parametrize("module", ["qtos_torch", "chip_smoke"])
+@pytest.mark.parametrize("module", ["qtos_torch", "chip_smoke", "bench_torch"])
 def test_import_leaves_jax_out(module):
     code = (
         "import sys, importlib\n"
