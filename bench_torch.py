@@ -68,20 +68,22 @@ def time_solves(specs, terrain, cfg: SolverConfig, repeats: int = REPEATS) -> di
     """One warm-up call of `solve_batch`, then `repeats` timed calls, each
     ended by a host read of the statuses.  Returns the seconds of each call,
     the fewest converged scenarios of any call, the kernels' launches in each
-    call (their counts are set to 0 before each call and read after it) and
-    the last call's result."""
+    call (their counts are set to 0 before each call and read after it; of
+    the BTD solve's, those of its small-batch kernel apart) and the last
+    call's result."""
     int((solve_batch(specs, terrain, cfg).status == 0).sum())
-    seconds, converged, btd, asm = [], [], [], []
+    seconds, converged, btd, small, asm = [], [], [], [], []
     for _ in range(repeats):
-        btd_solve.launches = assemble_kernel.launches = 0
+        btd_solve.launches = btd_solve.small_launches = assemble_kernel.launches = 0
         t0 = time.perf_counter()
         res = solve_batch(specs, terrain, cfg)
         converged.append(int((res.status == 0).sum()))
         seconds.append(time.perf_counter() - t0)
         btd.append(btd_solve.launches)
+        small.append(btd_solve.small_launches)
         asm.append(assemble_kernel.launches)
     return dict(B=int(res.status.shape[0]), seconds=seconds, converged=min(converged),
-                btd_launches=btd, assemble_launches=asm, result=res)
+                btd_launches=btd, small_btd_launches=small, assemble_launches=asm, result=res)
 
 
 def pass1_flops(B: int, cfg: SolverConfig) -> int:
@@ -112,7 +114,8 @@ def describe(t: dict, flops: int, on_card: bool) -> str:
     dt = statistics.median(s)
     line = (f"# B={B}: {dt:.3f}s -> {B / dt:.1f} solves/s ({t['converged']}/{B} converged); {len(s)} calls "
             f"min / median / max {min(s):.4f} / {dt:.4f} / {max(s):.4f} s; launches per call btd "
-            f"{t['btd_launches']}, assembly {t['assemble_launches']}")
+            f"{t['btd_launches']}, assembly {t['assemble_launches']}, of the btd the small-batch kernel's "
+            f"{t['small_btd_launches']}")
     fps = flops / dt
     line += f" | {flops / 1e9:.1f} GFLOP pass-1 -> {fps / 1e12:.3f} TFLOP/s"
     if on_card:

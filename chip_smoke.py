@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of qtos_torch on one CUDA card: builds its three kernels from
-the checkout, holds each against its plain PyTorch version, drives the batched
+"""Smoke run of qtos_torch on one CUDA card: builds its kernels from the
+checkout (the BTD solve's two, the tick's and the assembly's), holds each
+against its plain PyTorch version, drives the batched
 gait-NLP solve at bench width, plays solved trajectories through the physics,
 probes a feasibility map and plans over it, walks the exp_1 preset to its goal
 with the receding-horizon runner, paces a walk in real time, and checks the
@@ -24,7 +25,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      cholesky_solve, and the bound at (4, 41, 36) and (1, 41, 36), the
      library calls held to the plain version; the kernel's GB/s against the bound's bytes
      and against the bytes its design moves, its GFLOP/s, registers, shared
-     memory per block and resident warps per SM;
+     memory per block and resident warps per SM; the small-batch kernel
+     (btd_small_kernel, the same source) at every shape btd_pick_small
+     gives it, held to the plain version and to btd_kernel bit for bit, its
+     times at (4, 41, 36) and (1, 41, 36) in turns with btd_kernel's and
+     beside the dense library call's, its design floor
+     (tools/btd_floor.py), and both kernels at B = 1 .. 396 for the
+     crossover;
   3b. the assembly kernel vs its plain version (tools/check_assemble.py) at
      every shape a path gives it ((1, 33), (4, 41), (20, 25), (64, 41),
      (1024, 41), (8192, 41), (3, 13), (512, 13), (1, 41)) on the bench
@@ -59,10 +66,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      kernel's bound, and its design's floor from the latencies of the
      operations on the chain's loop-carried cycles, probed on the card;
   7. planner: the solver-probed feasibility map of the pillar tile (one
-     solve_batch over every candidate hop, K=25), the kernel's launches and
-     the failed hops, then A* and the global planner over that map;
-  8. the receding-horizon runner: one replan timed alone, the exp_1 preset
-     walked to its goal, a two-window checkpoint restored bit for bit, and
+     solve_batch over every candidate hop, K=25), the kernels' launches (the
+     BTD solve's on the kernel btd_pick_small picks for its batch) and the
+     failed hops, then A* and the global planner over that map;
+  8. the receding-horizon runner: one replan timed alone (5 calls; its BTD solves all
+     on the small-batch kernel, its results equal bit for bit to those by
+     btd_kernel), the exp_1 preset walked to its goal (the same kernel), a
+     two-window checkpoint restored bit for bit, and
      (d) `qtos_tpu`'s real-time canary walk (plane x2 to (0.8, 0),
      `realtime=True`, 6 windows) paced at 1 kHz;
   9. scenario sharding: solve_batch_sharded under NCCL at world size 1 on
@@ -74,7 +84,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      `measure`) on the card and on the CPU, from a golden written here (one
      converged window of phase 4, sampled at 1 kHz): statuses, card vs CPU
      deviation figures, ms per call, and one launch of each solver kernel
-     per LM iteration (120);
+     per LM iteration (120; the BTD solve's on the small-batch kernel, the
+     card's figures equal bit for bit to those by btd_kernel);
   11. the benchmark: `python3 bench_torch.py` in a child process at its
      default sizes; its exit code, convergence, launches and last line
      (bench.py's four keys).
@@ -124,6 +135,8 @@ SHAPES = [(3, 7, 12), (2, 5, 36), (1, 9, 5), (5, 4, 6), (1, 33, 36), (20, 25, 36
 # The small shapes timed besides the bench batch: a replan's (phase 8) and the
 # TOWR window's (phase 10).
 SMALL_TIMED = [(4, 41, 36), (1, 41, 36)]
+# Batches at which both BTD kernels are timed for the crossover (K=41, n=36).
+CROSSOVER_BATCHES = (1, 2, 4, 20, 64, 132, 264, 265, 396)
 
 
 def _synced(dev) -> float:
@@ -144,11 +157,27 @@ def _asm_launches() -> int:
 
 def _zero_solver_counts():
     """Sets the BTD and assembly kernels' counts to 0: one LM iteration
-    launches each once."""
+    launches each once (the BTD solve's btd_kernel or its small-batch
+    kernel)."""
     from qtos_torch.ops.assemble import assemble_kernel
     from qtos_torch.ops.btd import btd_solve
 
-    btd_solve.launches = assemble_kernel.launches = 0
+    btd_solve.launches = btd_solve.small_launches = assemble_kernel.launches = 0
+
+
+@contextlib.contextmanager
+def _warp_kernel_only():
+    """btd_solve on btd_kernel at every batch while inside: a path's results
+    by the small-batch kernel are held to btd_kernel's with it (a device of
+    this script's, not an option of the port)."""
+    from qtos_torch.ops import btd
+
+    picks = btd.picks_small
+    btd.picks_small = lambda B, K, n: False
+    try:
+        yield
+    finally:
+        btd.picks_small = picks
 
 
 def _zero_tick_counts():
@@ -164,7 +193,8 @@ def count_device_launches() -> None:
     `torch.profiler`, and one JSON line with the device launches of
     `tick_kernel` in each call's trace and the trace's device events; and
     one `solve_batch` call on those windows (the bench distribution at B=8),
-    with the device launches of `assemble_kernel` and `btd_kernel` in its
+    with the device launches of `assemble_kernel` and of the BTD solve's
+    kernels (`btd_kernel`, `btd_small_kernel`, which takes B=8) in its
     trace beside the wrappers' counts.  (In
     the smoke's own process, after phase 4's profile, later traces held no
     device events at all; a fresh process records them.)"""
@@ -200,7 +230,7 @@ def count_device_launches() -> None:
         names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
         out[name] = dict(device=sum("tick_kernel" in n for n in names), events=len(names),
                          wrapper=tick_scan.launches + tick_hold.launches)
-    btd_solve.launches = assemble_kernel.launches = 0
+    btd_solve.launches = btd_solve.small_launches = assemble_kernel.launches = 0
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=activities) as prof:
         solve_batch(specs, terrain, cfg)
@@ -208,7 +238,8 @@ def count_device_launches() -> None:
     names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     out["solve_batch"] = dict(device=sum("assemble_kernel" in n for n in names), events=len(names),
                               wrapper=assemble_kernel.launches, btd_device=sum("btd_kernel" in n for n in names),
-                              btd_wrapper=btd_solve.launches)
+                              small_device=sum("btd_small_kernel" in n for n in names),
+                              btd_wrapper=btd_solve.launches, small_wrapper=btd_solve.small_launches)
     print(json.dumps(out), flush=True)
 
 
@@ -532,9 +563,13 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
         solve = counted.pop("solve_batch")
         line = (f"# phase 6e device launches of assemble_kernel in one solve_batch call (bench distribution, B=8, "
                 f"torch.profiler trace, the same process): {solve['device']} (wrapper {solve['wrapper']}), "
-                f"btd_kernel {solve['btd_device']} (wrapper {solve['btd_wrapper']}), {solve['events']} device events")
-        if not (solve["device"] == solve["wrapper"] == solve["btd_device"] == solve["btd_wrapper"] >= 3):
-            fail(line + " (gate: one assembly launch per LM iteration, on the device and by the wrapper's count)")
+                f"btd_kernel {solve['btd_device']} and btd_small_kernel {solve['small_device']} (wrapper "
+                f"{solve['btd_wrapper']}, of them the small kernel's {solve['small_wrapper']}), {solve['events']} "
+                f"device events")
+        if not (solve["device"] == solve["wrapper"] == solve["btd_device"] + solve["small_device"]
+                == solve["btd_wrapper"] >= 3 and solve["small_device"] == solve["small_wrapper"]):
+            fail(line + " (gate: one assembly and one BTD launch per LM iteration, on the device and by the "
+                        "wrappers' counts, the BTD solve's on the kernel the wrapper counted)")
         log(line)
         asm_device_launches = solve["device"]
         line = (f"# phase 6e device launches of tick_kernel per call (torch.profiler trace of one call each, B=8, "
@@ -602,7 +637,7 @@ def phase_planner(dev, card) -> None:
     import numpy as np
     import torch
 
-    from qtos_torch.ops.btd import btd_solve
+    from qtos_torch.ops.btd import btd_solve, picks_small
     from qtos_torch.planner import GlobalPlanner, astar, feasibility_map
     from qtos_torch.planner.feasibility import probe_specs
     from qtos_torch.solver import SolverConfig, solve_batch
@@ -616,7 +651,7 @@ def phase_planner(dev, card) -> None:
     t1 = _synced(dev)
     fmap = feasibility_map(terrain, cfg=cfg, K=K)
     probe_s = _synced(dev) - t1
-    launches, asm_launches = btd_solve.launches, _asm_launches()
+    launches, asm_launches, small = btd_solve.launches, _asm_launches(), btd_solve.small_launches
 
     # The probe's windows once more, for the counts the map does not carry.
     _, specs = probe_specs(terrain, K=K)
@@ -632,11 +667,13 @@ def phase_planner(dev, card) -> None:
     route = astar(blocked, (H // 2, 0), (H // 2, W - 2))
     line = (f"# phase 7 feasibility probe {'+'.join(tiles)} (K={K}, max_iters={max_iters}): {n_pairs} pairs, "
             f"{n_failed} failed the obstacle gate, {n_unconverged} unconverged at tol {cfg.tol}, "
-            f"btd launches {launches}, assembly launches {asm_launches}, {probe_s:.3f} s on {card}; "
-            f"{int(blocked.sum())}/{blocked.size} cells blocked")
+            f"btd launches {launches} (of them the small-batch kernel's {small}), assembly launches "
+            f"{asm_launches}, {probe_s:.3f} s on {card}; {int(blocked.sum())}/{blocked.size} cells blocked")
     if dev.type == "cuda" and not launches == asm_launches >= max_iters:
         fail(line + f": the probe launched the kernels {launches} and {asm_launches} times, not equal and "
                     f">= max_iters {max_iters}")
+    if dev.type == "cuda" and small != (launches if picks_small(n_pairs, K, 36) else 0):
+        fail(line + ": the BTD solves did not go to the kernel that btd_pick_small picks at this batch")
     if not blocked[grid > 0.1].all():
         fail(line + ": a pillar cell is not blocked")
     if blocked.all(axis=0).any():
@@ -704,20 +741,32 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     goals = st.r + torch.stack([0.55 - 0.05 * torch.arange(k, device=dev),
                                 torch.zeros(k, device=dev), torch.zeros(k, device=dev)], dim=-1)
     gyaws = torch.zeros(k, device=dev)
-    for _ in range(2):                        # the second call is the timed one
+    times = []
+    for i in range(1 + (5 if on_card else 1)):  # a warm-up, then the timed calls (one on the CPU)
         _zero_solver_counts()
         t1 = _synced(dev)
         res, tables, _ = plan_windows_batch(rows, goals, gyaws, terrain, cfg)
-        replan_s = _synced(dev) - t1
-    replan_launches, replan_asm = btd_solve.launches, _asm_launches()
+        if i:
+            times.append(_synced(dev) - t1)
+    replan_s = statistics.median(times)
+    replan_launches, replan_asm, replan_small = btd_solve.launches, _asm_launches(), btd_solve.small_launches
     n_conv = int((res.status == 0).sum())
     line = (f"# phase 8a replan (plan_windows_batch, B={k}, K={cfg.K}, max_iters={cfg.solver.max_iters}): "
-            f"{replan_s * 1e3:.1f} ms on {card}, btd launches {replan_launches}, assembly launches {replan_asm}, "
+            f"{replan_s * 1e3:.1f} ms on {card} (median of {len(times)} calls, {min(times) * 1e3:.1f} to "
+            f"{max(times) * 1e3:.1f}), btd launches {replan_launches} (of them the small-batch "
+            f"kernel's {replan_small}), assembly launches {replan_asm}, "
             f"{n_conv}/{k} converged, "
             f"tables {tuple(tables.shape)}; the kernel against its plain version at "
             f"({k}, {cfg.K}, 36) is phase 3's row of that shape")
-    if on_card and not replan_launches == replan_asm == cfg.solver.max_iters:
-        fail(line + f": expected {cfg.solver.max_iters} launches of each")
+    if on_card and not replan_launches == replan_asm == replan_small == cfg.solver.max_iters:
+        fail(line + f": expected {cfg.solver.max_iters} launches of each, the BTD solve's all of the small-batch "
+                    f"kernel")
+    with _warp_kernel_only():
+        res_w, tables_w, _ = plan_windows_batch(rows, goals, gyaws, terrain, cfg)
+    same = torch.equal(res.x, res_w.x) and torch.equal(tables, tables_w) and torch.equal(res.status, res_w.status)
+    line += f"; x, statuses and tables equal to the replan's by btd_kernel bit for bit: {same}"
+    if not same:
+        fail(line)
     if not (n_conv >= 1 and bool(torch.isfinite(tables).all())):
         fail(line)
     log(line)
@@ -729,7 +778,7 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     t1 = _synced(dev)
     rep = runner.run(verbose=True)
     wall = _synced(dev) - t1
-    launches, runner_asm = btd_solve.launches, _asm_launches()
+    launches, runner_asm, runner_small = btd_solve.launches, _asm_launches(), btd_solve.small_launches
     tick_launches = _tick_counts()
     chunks = len(runner._st["com_errs"])
     want = cfg.solver.max_iters * rep.windows + cfg.escalate_iters * runner.escalations
@@ -742,7 +791,8 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
             f"escalations {runner.escalations}, final pos ({rep.final_pos[0]:.4f}, {rep.final_pos[1]:.4f}, "
             f"{rep.final_pos[2]:.4f}), avg_com_err_per_s {rep.avg_com_err_per_s:.2f}, "
             f"btd launches {launches} (= {cfg.solver.max_iters} x {rep.windows} solves"
-            f"{' + escalations' if runner.escalations else ''}), assembly launches {runner_asm}, "
+            f"{' + escalations' if runner.escalations else ''}; of them the small-batch kernel's {runner_small}), "
+            f"assembly launches {runner_asm}, "
             f"tick kernel launches (playback, hold) "
             f"{tick_launches} for {chunks} executed chunks and 1 warm-up; wall {wall:.2f} s on {card} = "
             f"{wall / loops:.2f} s per window over {loops} windows of the loop, of which replans "
@@ -758,7 +808,7 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     if goal_xy is None:
         ok = ok and rep.final_pos[0] > 1.9
     if on_card:
-        ok = ok and launches == want == runner_asm and tick_launches == (chunks, 1)
+        ok = ok and launches == want == runner_asm == runner_small and tick_launches == (chunks, 1)
     if not ok:
         fail(line)
     log(line)
@@ -809,7 +859,8 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
         log("# phase 8d real-time walk: on the card only")
     log(f"# phase 8 done in {time.time() - t0:.1f} s")
     return {"replan": replan_launches, "runner": launches, "tick_runner": tick_launches,
-            "asm_replan": replan_asm, "asm_runner": runner_asm}
+            "asm_replan": replan_asm, "asm_runner": runner_asm, "small_replan": replan_small,
+            "small_runner": runner_small}
 
 
 def phase_sharded(dev, card, B=1024, two_rank_batches=(5, 1023)) -> int:
@@ -903,25 +954,36 @@ def phase_towr(dev, card, golden_table) -> dict:
             fig, res, spec = towr.measure(golden=golden, device=d)
             t2 = _synced(dev)
             out[name] = dict(fig=fig, ms=(t2 - t1) * 1e3, iters=int(res.iters), btd=btd_solve.launches,
-                             asm=_asm_launches(), double_support=int((spec.schedule.contact.sum(-1) == 4).sum()))
+                             small=btd_solve.small_launches, asm=_asm_launches(),
+                             double_support=int((spec.schedule.contact.sum(-1) == 4).sum()))
+    if on_card:
+        with tempfile.TemporaryDirectory() as tmp, _warp_kernel_only():
+            golden = os.path.join(tmp, "golden.csv")
+            np.savetxt(golden, golden_table, delimiter=",")
+            fig_w, _, _ = towr.measure(golden=golden, device=dev)
     card_run, cpu_run = out["card"], out["cpu"]
     gaps = {k: abs(card_run["fig"][k] - cpu_run["fig"][k]) for k in ("com_rms", "end_dev")}
     line = (f"# phase 10 TOWR window (measure, K=41, 2.5 s, {card_run['double_support']} knots of four-foot "
             f"support from the force profile, B=1) on {card}: " + "; ".join(
                 f"{name}: status {r['fig']['status']}, max_violation {r['fig']['max_violation']:.3e}, com_rms "
                 f"{r['fig']['com_rms']:.4e}, end_dev {r['fig']['end_dev']:.4e}, feet_rms {r['fig']['feet_rms']:.4e} m, "
-                f"{r['iters']} LM iterations, btd and assembly launches {r['btd']} and {r['asm']}, "
+                f"{r['iters']} LM iterations, btd and assembly launches {r['btd']} and {r['asm']} (the small-batch "
+                f"kernel's {r['small']}), "
                 f"{r['ms']:.1f} ms per measure" for name, r in out.items())
-            + f"; card vs CPU com_rms {gaps['com_rms']:.2e}, end_dev {gaps['end_dev']:.2e} m (gate {TOWR_GATE_M})")
+            + f"; card vs CPU com_rms {gaps['com_rms']:.2e}, end_dev {gaps['end_dev']:.2e} m (gate {TOWR_GATE_M})"
+            + (f"; the card's figures equal those by btd_kernel bit for bit: {card_run['fig'] == fig_w}"
+               if on_card else ""))
     ok = (all(r["fig"]["status"] == 0 and r["fig"]["max_violation"] < 3e-3
               and all(math.isfinite(v) for v in r["fig"].values()) for r in out.values())
           and all(g <= TOWR_GATE_M for g in gaps.values())
           and cpu_run["btd"] == cpu_run["asm"] == 0
-          and (not on_card or card_run["btd"] == card_run["asm"] == card_run["iters"] == 120))
+          and (not on_card or (card_run["btd"] == card_run["asm"] == card_run["small"] == card_run["iters"] == 120
+                               and card_run["fig"] == fig_w)))
     if not ok:
         fail(line)
     log(line + f" (phase 10 done in {time.time() - t0:.1f} s)")
-    return {"btd": card_run["btd"], "assemble": card_run["asm"]}
+    return {"btd": card_run["btd"], "assemble": card_run["asm"], "small": card_run["small"],
+            "figures": card_run["fig"], "ms": card_run["ms"]}
 
 
 BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]          # bench.py's last line
@@ -931,8 +993,9 @@ def phase_bench(card) -> str:
     """Phase 11: `python3 bench_torch.py` in a child process with the
     default sizes (B=1024 and 8192).  It must exit 0, print one `# B=`
     line per size with every scenario converged and each kernel launched
-    once per LM iteration in every timed call, and end in a line with
-    exactly `bench.py`'s keys.  Returns that line."""
+    once per LM iteration in every timed call (the BTD solve's btd_kernel,
+    not its small-batch kernel), and end in a line with exactly `bench.py`'s
+    keys.  Returns that line."""
     t0 = time.time()
     here = os.path.dirname(os.path.abspath(__file__))
     env = {k: v for k, v in os.environ.items() if k != "QTOS_BENCH_BATCHES"}
@@ -949,11 +1012,12 @@ def phase_bench(card) -> str:
 
     def good(line):
         conv = re.search(r"\((\d+)/(\d+) converged\)", line)
-        counts = re.search(r"btd \[([\d, ]+)\], assembly \[([\d, ]+)\]", line)
+        counts = re.search(r"btd \[([\d, ]+)\], assembly \[([\d, ]+)\], of the btd the small-batch kernel's "
+                           r"\[([\d, ]+)\]", line)
         if not (conv and counts) or conv.group(1) != conv.group(2):
             return False
-        btd, asm = ([int(v) for v in g.split(",")] for g in counts.groups())
-        return btd == asm and min(btd) >= 3
+        btd, asm, small = ([int(v) for v in g.split(",")] for g in counts.groups())
+        return btd == asm and min(btd) >= 3 and max(small) == 0
 
     ok = (child.returncode == 0 and isinstance(out, dict) and list(out) == BENCH_KEYS
           and out["metric"] == "gait_nlp_solves_per_s" and out["value"] > 0
@@ -986,7 +1050,7 @@ def main() -> None:
     from qtos_torch.solver.transcription import initial_guess, knot_aux
     from qtos_torch.terrain import make_terrain
     from qtos_torch.terrain.heightfield import slope_terrain
-    from qtos_torch.tools import check_assemble, profile_solve, tick_floor
+    from qtos_torch.tools import btd_floor, check_assemble, profile_solve, tick_floor
 
     dev = torch.device("cuda")
 
@@ -1020,9 +1084,11 @@ def main() -> None:
         return (int(m.group(2)), int(m.group(1))) if m else (None, None)
 
     (regs, _), (tick_regs, tick_spills) = registers("btd_kernel"), registers("tick_kernel")
+    small_regs, small_spills = registers("btd_small_kernel")
     asm_regs, asm_spills = registers("assemble_kernel")
     log(f"# phase 2 build: {', '.join(paths)} in {time.time() - t0:.1f} s; registers per thread: "
-        f"btd_kernel {regs}, tick_kernel {tick_regs} with {tick_spills} B spill stores (before the tick "
+        f"btd_kernel {regs}, btd_small_kernel {small_regs} with {small_spills} B spill stores, "
+        f"tick_kernel {tick_regs} with {tick_spills} B spill stores (before the tick "
         f"kernel's redesign: {TICK_BEFORE}), assemble_kernel {asm_regs} with {asm_spills} B spill stores")
 
     # ---- 3. kernel vs plain ----------------------------------------------
@@ -1118,28 +1184,41 @@ def main() -> None:
     def rel_residual(D, L, x, b):
         return float(torch.linalg.norm(block_tridiag_matvec(D, L, x) - b) / torch.linalg.norm(b))
 
-    def packed_launch_ms(D, L, b):
-        """ms per launch of the BTD kernel alone, on inputs packed once (the
-        output and the factors' scratch allocated once, no wrapper)."""
+    def packed_launcher(D, L, b, small=False):
+        """(launch, x): one launch of btd_kernel, or of the small-batch
+        kernel, on inputs packed once (the output and the factors' scratch
+        allocated once, no wrapper, no count)."""
         lib = btd_mod._load()
         B, K, n = b.shape
         x = torch.empty_like(b)
         scratch = torch.empty((B, K - 1, lib.btd_packed_floats(n)), dtype=D.dtype, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
+        fn = lib.btd_small_solve_f32 if small else lib.btd_solve_f32
 
         def launch():
-            return lib.btd_solve_f32(D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(),
-                                     B, K, n, stream)
+            err = fn(D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, K, n, stream)
+            if err != 0:
+                fail(f"phase 3: {'small-batch' if small else 'btd'} kernel launch failed at ({B}, {K}, {n}): "
+                     f"CUDA error {err}")
 
-        err = launch()
-        if err != 0:
-            fail(f"phase 3: btd kernel launch failed at ({B}, {K}, {n}): CUDA error {err}")
+        return launch, x
+
+    def packed_launch_ms(D, L, b, small=False):
+        """ms per launch of one kernel alone, on inputs packed once."""
+        launch, _ = packed_launcher(D, L, b, small)
+        launch()
         return event_ms(launch, 20)
+
+    # The small-batch kernel's design floor at the probe's latencies
+    # (tools/btd_floor.py; the probe was built in phase 2).
+    op_cycles = tick_floor.op_cycles(tick_floor.load_probe(paths[3]))
+    sm_clock = tick_floor.sm_clock_mhz()
 
     t0 = time.time()
     kernel_row = None
     small_rows = {}
-    max_err_all = 0.0
+    max_err_all = small_err = 0.0
+    small_shapes = []
     for i, (B, K, n) in enumerate(SHAPES):
         D, L, b, xt = spd_system(B, K, n, i)
         x = btd_solve(D, L, b)
@@ -1154,6 +1233,21 @@ def main() -> None:
                 f"(vs true x {err_true:.3e}), |Hx-b|/|b| {res:.3e}")
         if not (math.isfinite(err) and err <= KERNEL_ATOL and err_true <= KERNEL_ATOL):
             fail(line + f" exceeds atol {KERNEL_ATOL}")
+        if btd_mod.picks_small(B, K, n):
+            # the shape goes to the small-batch kernel: held to the plain
+            # version and to btd_kernel, bit for bit
+            (run_s, xs), (run_w, xw) = packed_launcher(D, L, b, True), packed_launcher(D, L, b)
+            run_s()
+            run_w()
+            torch.cuda.synchronize()
+            serr, same = float((xs - xp).abs().max()), torch.equal(xs, xw)
+            small_err = max(small_err, serr)
+            small_shapes.append((B, K, n))
+            line += (f"\n# phase 3 small-batch kernel B={B} K={K} n={n}: max_abs_err {serr:.3e}, x equal to "
+                     f"btd_kernel's bit for bit {same}, btd_solve's call took it {bool(torch.equal(x, xs))}")
+            if not (math.isfinite(serr) and serr <= KERNEL_ATOL and same and torch.equal(x, xs)):
+                fail(line + f" (gates: within atol {KERNEL_ATOL} of the plain version, btd_kernel's x bit for bit)")
+            del xs, xw
         if (B, K, n) == (8192, 41, 36):
             ms = event_ms(lambda: btd_solve(D, L, b), 10)
             plain_ms = event_ms(lambda: block_tridiag_solve(D, L, b), 1)
@@ -1188,23 +1282,56 @@ def main() -> None:
             H = dense_system(D, L)                     # built once, outside the timing
             lib_err = float((library_thomas(D, L, b, cholesky_ex) - xp).abs().max())
             dense_err = float((dense_solve(H, b) - xp).abs().max())
-            small_rows[B] = dict(ms=packed_launch_ms(D, L, b), call_ms=event_ms(lambda: btd_solve(D, L, b), 20),
+            floor_ms, _, floor_stages = btd_floor.design_floor(op_cycles, K, n, sm_clock)
+            warp_ms = packed_launch_ms(D, L, b)
+            small_ms = packed_launch_ms(D, L, b, small=True)
+            small_rows[B] = dict(ms=warp_ms, small_ms=small_ms,
+                                 small_ms_again=packed_launch_ms(D, L, b, small=True),
+                                 ms_again=packed_launch_ms(D, L, b),
+                                 call_ms=event_ms(lambda: btd_solve(D, L, b), 20),
                                  plain_ms=event_ms(lambda: block_tridiag_solve(D, L, b), 3),
                                  library_ms=event_ms(lambda: library_thomas(D, L, b, cholesky_ex), 3),
-                                 dense_ms=event_ms(lambda: dense_solve(H, b), 5), bound_ms=bms, bound_by=bby)
+                                 dense_ms=event_ms(lambda: dense_solve(H, b), 5), bound_ms=bms, bound_by=bby,
+                                 small_floor_ms=floor_ms)
             del H
             r = small_rows[B]
-            line += (f"\n# phase 3 times B={B} K={K} n={n} on {card}: kernel {r['ms']:.4f} ms on inputs packed once "
-                     f"(the wrapper's whole call {r['call_ms']:.4f} ms), plain {r['plain_ms']:.3f} ms, library "
-                     f"loop with cholesky_ex {r['library_ms']:.3f} ms (vs plain x {lib_err:.3e}), dense "
-                     f"cholesky_ex + cholesky_solve on ({B}, {K * n}, {K * n}) {r['dense_ms']:.3f} ms (vs plain x "
-                     f"{dense_err:.3e}), bound {bms:.5f} ms by {bby} ({nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP), "
-                     f"{r['ms'] / bms:.0f}x the bound")
+            line += (f"\n# phase 3 times B={B} K={K} n={n} on {card}: small-batch kernel {r['small_ms']:.4f} / "
+                     f"{r['small_ms_again']:.4f} ms and btd_kernel {r['ms']:.4f} / {r['ms_again']:.4f} ms on inputs "
+                     f"packed once, in turns (the wrapper's whole call {r['call_ms']:.4f} ms), plain "
+                     f"{r['plain_ms']:.3f} ms, library loop with cholesky_ex {r['library_ms']:.3f} ms (vs plain x "
+                     f"{lib_err:.3e}), dense cholesky_ex + cholesky_solve on ({B}, {K * n}, {K * n}) "
+                     f"{r['dense_ms']:.3f} ms (vs plain x {dense_err:.3e}), bound {bms:.5f} ms by {bby} "
+                     f"({nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP), {r['small_ms'] / bms:.0f}x the bound; the "
+                     f"small kernel's design floor {floor_ms:.4f} ms ({r['small_ms'] / floor_ms:.1f}x; cycles by "
+                     f"stage " + ", ".join(f"{k} {v:.0f}" for k, v in floor_stages.items()) + f" at {sm_clock:g} MHz)")
             if not (lib_err <= KERNEL_ATOL and dense_err <= KERNEL_ATOL):
                 fail(line + f": a library call exceeds atol {KERNEL_ATOL} against the plain version")
+            faster = (r["small_ms"] < r["dense_ms"]) if B == 1 else (r["small_ms"] < r["ms"])
+            if not faster:
+                fail(line + ": the small-batch kernel is not faster than the " +
+                     ("dense library call" if B == 1 else "btd_kernel"))
         log(line)
         del D, L, b, xt, x, xp
     torch.cuda.empty_cache()
+
+    # The crossover: both kernels at (B, 41, 36) in turns (btd_kernel, small,
+    # small, btd_kernel), against the rule fixed in btd.cu (btd_pick_small).
+    crossover = {}
+    for i, B in enumerate(CROSSOVER_BATCHES):
+        D, L, b, _ = spd_system(B, 41, 36, 100 + i)
+        w1, s1, s2, w2 = (packed_launch_ms(D, L, b, small) for small in (False, True, True, False))
+        crossover[B] = dict(btd_kernel_ms=(w1 + w2) / 2, small_ms=(s1 + s2) / 2,
+                            picked="small" if btd_mod.picks_small(B, 41, 36) else "btd_kernel")
+        del D, L, b
+    faster = [B for B, c in crossover.items() if c["small_ms"] < c["btd_kernel_ms"]]
+    crossover_batch = max(faster) if faster else 0
+    log(f"# phase 3 crossover at K=41, n=36 on {card} (ms per launch, btd_kernel / small-batch kernel, mean of two "
+        f"in turns; the kernel btd_pick_small picks): " + ", ".join(
+            f"B={B} {c['btd_kernel_ms']:.4f} / {c['small_ms']:.4f} ({c['picked']})" for B, c in crossover.items())
+        + f"; the small kernel is faster up to B={crossover_batch} of these; "
+        f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
+    log(f"# phase 3 small-batch kernel: held to btd_kernel bit for bit and to the plain version at "
+        f"{small_shapes}, max_abs_err {small_err:.3e}")
 
     # An LM system of the main path: first-iteration system at the bench
     # distribution, damped as solve_batch damps it.
@@ -1299,6 +1426,9 @@ def main() -> None:
         if not all(a == b >= cfg.max_iters for a, b in zip(t["btd_launches"], t["assemble_launches"])):
             fail(f"the main path launched the BTD and assembly kernels {t['btd_launches']} and "
                  f"{t['assemble_launches']} times, not one each per LM iteration (>= max_iters {cfg.max_iters})")
+        if any(t["small_btd_launches"]):
+            fail(f"the main path at B={B} launched the small-batch BTD kernel {t['small_btd_launches']} times: "
+                 f"this batch is btd_kernel's")
         if n_conv != B:
             fail(f"{B - n_conv}/{B} scenarios did not converge")
         if not bool(torch.isfinite(res.x).all()):
@@ -1373,6 +1503,38 @@ def main() -> None:
         max_err=max_err_all,
         **kernel_row,
         **{f"{key}_b{B}": v for B, r in small_rows.items() for key, v in r.items()},
+        crossover_batch=crossover_batch,
+        crossover_ms={B: [c["btd_kernel_ms"], c["small_ms"]] for B, c in crossover.items()},
+    )
+    # The small-batch kernel of the same source: its path is the replan
+    # (phase 8a; 8b's walk and phase 10's TOWR window too); its times at
+    # the replan's shape (4, 41, 36), and at the TOWR window's (1, 41, 36).
+    r4, r1 = small_rows[4], small_rows[1]
+    small_row = dict(
+        name="btd_small",
+        route="cuda",
+        source="qtos_torch/csrc/btd.cu",
+        replaces="qtos_tpu/ops/pallas/btd.py:153 (_btd_kernel), at batches of up to two scenarios per SM",
+        launches=runner_launches["small_replan"],
+        launches_runner=runner_launches["small_runner"],
+        launches_towr=towr_launches["small"],
+        max_abs_err=small_err,
+        ms=r4["small_ms"],
+        plain_ms=r4["plain_ms"],
+        bound_ms=r4["bound_ms"],
+        bound_by=r4["bound_by"],
+        library_ms=r4["dense_ms"],
+        floor_ms=r4["small_floor_ms"],
+        btd_kernel_ms=r4["ms"],
+        ms_b1=r1["small_ms"],
+        plain_ms_b1=r1["plain_ms"],
+        bound_ms_b1=r1["bound_ms"],
+        library_ms_b1=r1["dense_ms"],
+        floor_ms_b1=r1["small_floor_ms"],
+        btd_kernel_ms_b1=r1["ms"],
+        crossover_batch=crossover_batch,
+        registers=small_regs,
+        spill_stores_bytes=small_spills,
     )
     asm_row = dict(
         name="assemble",
@@ -1407,7 +1569,7 @@ def main() -> None:
         spill_stores_bytes=tick_spills,
         **tick_row,
     )
-    print(json.dumps({"kernels": [row, tick_row, asm_row]}), flush=True)
+    print(json.dumps({"kernels": [row, small_row, tick_row, asm_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

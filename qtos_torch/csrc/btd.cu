@@ -184,8 +184,14 @@ __device__ __forceinline__ void row_block4(const float* Si, const float* const R
 // plain version's right-looking updates reach S[i][j].  Block j0 gives row
 // i to lane (i - j0) mod 32, so while n - j0 <= 32 every lane has at most
 // one row.  Entries above the diagonal in the block's rows of S are
-// overwritten with values nobody reads.
-__device__ void chol_inplace(float* S, float* __restrict__ spill, int n, int ld, int lane) {
+// overwritten with values nobody reads.  after_block(j0) runs on every lane
+// once block j0 is in S (the small kernel hands the columns on with it).
+struct NoHook {
+  __device__ void operator()(int) const {}
+};
+template <class AfterBlock = NoHook>
+__device__ void chol_inplace(float* S, float* __restrict__ spill, int n, int ld, int lane,
+                             AfterBlock after_block = {}) {
   for (int j0 = 0; j0 < n; j0 += 4) {
     const int nb = min(4, n - j0);
     const float* R[4];
@@ -243,6 +249,7 @@ __device__ void chol_inplace(float* S, float* __restrict__ spill, int n, int ld,
       }
     }
     __syncwarp();
+    after_block(j0);
   }
 }
 
@@ -551,6 +558,451 @@ int blocks_per_sm(size_t smem, cudaError_t* err) {
   return *err == cudaSuccess ? blocks : 0;
 }
 
+// ---- the small-batch kernel ------------------------------------------------
+//
+// One scenario on one block of kSmallThreads threads, for batches too small
+// to fill the card with btd_kernel's warps (btd_pick_small says when): there
+// each scenario's dependent chain sets the time, about 1 ms at K = 41, n = 36
+// for 1 or 132 scenarios alike.  Same recursion and, entry by entry, the
+// same expressions in the same order as btd_kernel, so x equals
+// btd_kernel's bit for bit; only who computes an entry, and when, differs:
+//   - b for every knot comes in by cp.async at the start, D_k and L_k a knot
+//     ahead, each copy spread over all threads;
+//   - the Cholesky of S_k runs on warp 0 (chol_inplace), writing C_k packed
+//     into shared memory, where all K factors stay for the back pass;
+//   - beside it, the row solves of the next knot, M C_k^T = L_k and
+//     C_k z = y_k, run one row per thread on warps 1.. (forward_row_block),
+//     each column block as soon as the Cholesky has finished it: warp 0
+//     arrives at a named barrier per block (or group of blocks), the row
+//     warps, whole, wait there;
+//   - then the rank update S_{k+1} = D_{k+1} - M M^T runs on 2 x 2 tiles over
+//     warps 0-5 (rank_tiles), y_{k+1} = b_{k+1} - M z on warps 6-7 beside it;
+//   - the back pass runs on warp 0, lane t owning rows 4t..4t+3: L_k^T x_{k+1}
+//     four rows a lane, and the vector solves a 4 x 4 diagonal block at a
+//     time (chol_solve_rows), so a shuffle is on the chain once per four
+//     entries, not once per entry.
+// A knot's two stages (Cholesky and row solves; rank update) end at
+// __syncthreads.  Shared memory (floats; P = cs_pitch(n), every part a
+// multiple of 4):
+//   CS0, CS1  n x P each: D_k -> S_k -> C_k in CS(k & 1); in the back pass
+//             the L_k, alternately
+//   Ls0, Ls1  n x n each: L_k as copied, in Ls(k & 1)
+//   M         (n+1) x (n+1): M, and z in its last row
+//   Y         K x n: b_k -> y_k
+//   F         K x packed_floats(n): C_0 .. C_{K-1}, packed
+//   v         n: x_{k+1} in the back pass
+// At n = 36, K = 41: 141,824 B (F is 109,552 of them), one block per SM.
+//
+// What bounds it: one scenario's dependent chain, as for btd_kernel alone
+// on an SM; its bytes (0.43 MB a scenario at K = 41, n = 36) take 0.13 us.
+// The chain's floor at the card's latencies, counted in
+// qtos_torch/tools/btd_floor.py, is 0.113 ms at K = 41, n = 36, most of it
+// the Cholesky's 4 x 4 diagonal factors (four reciprocal square roots each)
+// and the vector solves' shuffles; the design takes the rest of the work
+// off that chain (PERF.md has its times).
+
+constexpr int kSmallThreads = 256;
+constexpr int kTileThreads = 192;  // warps 0-5: the rank update; warps 6-7: y_k (n <= 64)
+constexpr int kNamedBarriers = 15;  // named barriers 1..15 (0 is __syncthreads')
+// The crossover, measured on an H100 at K = 41, n = 36 (PERF.md): two rounds
+// of one block per SM (B = 264, 0.92 ms) still beat btd_kernel (0.99 ms),
+// three do not.  The small kernel up to this many scenarios per SM,
+// btd_kernel above.
+constexpr int kSmallPerSm = 2;
+
+__host__ __device__ constexpr int round4(int f) { return (f + 3) & ~3; }
+
+__host__ __device__ constexpr size_t small_floats(int n, int K) {
+  return (size_t)2 * n * cs_pitch(n) + 2 * round4(n * n) + round4((n + 1) * (n + 1)) + round4(K * n) +
+         (size_t)K * packed_floats(n) + round4(n);
+}
+
+#ifndef QTOS_EMU_NAMED_BARRIERS
+// Named barrier `id` (1..15) of `count` threads, whole warps that reach it
+// together (bar.sync and bar.arrive are .aligned): bar_sync waits for the
+// others, bar_arrive counts the warp and goes on; both order the
+// shared-memory accesses before them for the barrier's threads.
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+#endif
+
+// Starts the copy of `count` floats from device memory, spread over the
+// `nthreads` threads numbered from 0 (tid): 16-byte copies when both ends
+// are 16-byte aligned and count is a multiple of 4, else 4-byte ones.
+__device__ __forceinline__ void copy_span(float* dst, const float* __restrict__ src, int count,
+                                          int tid, int nthreads) {
+  if (((reinterpret_cast<uintptr_t>(dst) | reinterpret_cast<uintptr_t>(src)) & 15) == 0 &&
+      (count & 3) == 0) {
+    for (int e = 4 * tid; e < count; e += 4 * nthreads) __pipeline_memcpy_async(dst + e, src + e, 16);
+  } else {
+    for (int e = tid; e < count; e += nthreads) __pipeline_memcpy_async(dst + e, src + e, 4);
+  }
+  __pipeline_commit();
+}
+
+// Starts the copy dst[i * ld + j] = src[i * n + j] of an n x n block (dst
+// 16-byte aligned, ld a multiple of 4), spread as copy_span's.
+__device__ __forceinline__ void copy_rows(float* dst, int ld, const float* __restrict__ src, int n,
+                                          int tid, int nthreads) {
+  if ((reinterpret_cast<uintptr_t>(src) & 15) == 0 && (n & 3) == 0) {
+    const int q = n >> 2;
+    for (int e = tid; e < n * q; e += nthreads) {
+      const int i = e / q, j = 4 * (e - i * q);
+      __pipeline_memcpy_async(dst + i * ld + j, src + i * n + j, 16);
+    }
+  } else {
+    for (int e = tid; e < n * n; e += nthreads) {
+      const int i = e / n;
+      __pipeline_memcpy_async(dst + i * ld + (e - i * n), src + e, 4);
+    }
+  }
+  __pipeline_commit();
+}
+
+// Column block j0 of forward_rows for one row, read from `in` and written
+// to `out` (its columns < j0 done): out[j] = (in[j] - sum_{c<j} out[c]
+// C[j][c]) / C[j][j] for j in j0..j0+3, with forward_rows' expressions in
+// its order.
+__device__ __forceinline__ void forward_row_block(float* out, const float* in, const float* C, int n,
+                                                  int ldc, int j0) {
+  const int nb = min(4, n - j0);
+  const float* Cr[4];
+  float s[4], rinv[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    Cr[b] = C + min(j0 + b, n - 1) * ldc;
+    rinv[b] = __fdividef(1.0f, Cr[b][min(j0 + b, n - 1)]);
+    s[b] = b < nb ? in[j0 + b] : 0.f;
+  }
+  for (int c = 0; c < j0; c += 4) {
+    const float a[4] = {out[c], out[c + 1], out[c + 2], out[c + 3]};
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const float4 q = ld4(Cr[b] + c);
+      s[b] -= a[0] * q.x;
+      s[b] -= a[1] * q.y;
+      s[b] -= a[2] * q.z;
+      s[b] -= a[3] * q.w;
+    }
+  }
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    if (b < nb) {
+      s[b] *= rinv[b];
+#pragma unroll
+      for (int b2 = b + 1; b2 < 4; ++b2)
+        if (b2 < nb) s[b2] -= s[b] * Cr[b2][j0 + b];
+      out[j0 + b] = s[b];
+    }
+  }
+}
+
+// rank_update's lower triangle of S = D - M M^T on 2 x 2 tiles, tile t0,
+// t0 + stride, ...: each sum taken over c = 0, 1, ... and subtracted once.
+__device__ void rank_tiles(float* S, const float* M, int n, int lds, int ldm, int t0, int stride) {
+  const int T = (n + 1) >> 1;
+  const int nt = T * (T + 1) / 2;
+  for (int t = t0; t < nt; t += stride) {
+    int ti = 0, tl = t;
+    while (tl > ti) { tl -= ti + 1; ++ti; }
+    const int i = 2 * ti, l = 2 * tl;
+    const float* A0 = M + i * ldm;
+    const float* A1 = M + min(i + 1, n - 1) * ldm;
+    const float* B0 = M + l * ldm;
+    const float* B1 = M + min(l + 1, n - 1) * ldm;
+    float acc00 = 0.f, acc01 = 0.f, acc10 = 0.f, acc11 = 0.f;
+#pragma unroll 4
+    for (int c = 0; c < n; ++c) {
+      const float x0 = A0[c], x1 = A1[c], y0 = B0[c], y1 = B1[c];
+      acc00 += x0 * y0;
+      acc01 += x0 * y1;
+      acc10 += x1 * y0;
+      acc11 += x1 * y1;
+    }
+    S[i * lds + l] -= acc00;
+    if (l + 1 <= i) S[i * lds + l + 1] -= acc01;
+    if (i + 1 < n) {
+      S[(i + 1) * lds + l] -= acc10;
+      S[(i + 1) * lds + l + 1] -= acc11;
+    }
+  }
+}
+
+// One diagonal block jb of the vector solves below, C w = r (kForward) or
+// C^T u = w: every lane takes the owner's steps on a copy t of its entries
+// and the other lanes' update u, so the warp does not diverge, and keeps
+// the results that are its own.  kWhole: the block has all four columns
+// (nb = 4), and no step is predicated.
+template <bool kForward, bool kWhole>
+__device__ __forceinline__ void solve_block(float (&r)[4], const float (&q)[4][4], const float (&dg)[4][4],
+                                            const float (&rinv)[4], int nb, int jb, int lane) {
+  float t[4] = {r[0], r[1], r[2], r[3]};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int a = kForward ? i : 3 - i;
+    if (kWhole || a < nb) {
+      t[a] *= rinv[a];
+#pragma unroll
+      for (int a2 = 0; a2 < 4; ++a2) {
+        if (kForward ? (a2 > a && (kWhole || a2 < nb)) : a2 < a) t[a2] -= (kForward ? dg[a2][a] : dg[a][a2]) * t[a];
+      }
+    }
+  }
+  float w[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) w[b] = __shfl_sync(kFull, t[b], jb);
+  const bool owner = lane == jb, other = kForward ? lane > jb : lane < jb;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    float u = r[a];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int b = kForward ? i : 3 - i;
+      if (kWhole || b < nb) u -= q[a][b] * w[b];
+    }
+    r[a] = owner ? t[a] : other ? u : r[a];
+  }
+}
+
+// chol_solve_vec for lane t's rows 4t..4t+3 (r[a] = r[4t + a]; t <
+// ceil(n/4)), with its expressions in its order: (C C^T) u = r in place, C
+// packed row by row in P.  A 4 x 4 diagonal block at a time (solve_block),
+// its owner lane solves the block's entries from registers (its block's
+// entries and reciprocals, read once), then four shuffles hand them to the
+// lanes of the other blocks, which take them in the order of their
+// columns, with the factor's entries read a step ahead.
+__device__ __forceinline__ void chol_solve_rows(const float* P, float (&r)[4], int n, int lane) {
+  const int T = (n + 3) >> 2, i0 = 4 * lane;
+  const float* Pr[4];
+  float rinv[4], dg[4][4] = {};
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = min(i0 + a, n - 1);
+    Pr[a] = P + i * (i + 1) / 2;
+    rinv[a] = __fdividef(1.0f, Pr[a][i]);
+  }
+#pragma unroll
+  for (int a = 1; a < 4; ++a) {
+#pragma unroll
+    for (int a2 = 0; a2 < a; ++a2) dg[a][a2] = Pr[a][min(i0 + a2, n - 1)];
+  }
+  // C w = r; q holds P[4t + a][j0 + b] for the block column in hand (past
+  // the last block, the last block's again: every read stays inside the
+  // packed factors and v).
+  float q[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) q[a][b] = Pr[a][b];
+  }
+  for (int jb = 0; jb < T; ++jb) {
+    const int j0 = 4 * jb, nb = min(4, n - j0), jn = min(j0 + 4, 4 * (T - 1));
+    float qn[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) qn[a][b] = Pr[a][jn + b];
+    }
+    if (nb == 4)
+      solve_block<true, true>(r, q, dg, rinv, nb, jb, lane);
+    else
+      solve_block<true, false>(r, q, dg, rinv, nb, jb, lane);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) q[a][b] = qn[a][b];
+    }
+  }
+  // C^T u = w; q holds P[j0 + b][4t + a] for the block row in hand.  The
+  // lanes past the last block read that block's columns (and drop them),
+  // so that every read stays inside the packed factors and v.
+  const int c0 = min(i0, 4 * (T - 1));
+  const float* Pj[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) {
+    const int j = min(4 * (T - 1) + b, n - 1);
+    Pj[b] = P + j * (j + 1) / 2 + c0;
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+#pragma unroll
+    for (int b = 0; b < 4; ++b) q[a][b] = Pj[b][a];
+  }
+  for (int jb = T - 1; jb >= 0; --jb) {
+    const int j0 = 4 * jb, nb = min(4, n - j0);
+    float qn[4][4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int j = max(j0 - 4 + b, 0);
+      Pj[b] = P + j * (j + 1) / 2 + c0;
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) qn[a][b] = Pj[b][a];
+    }
+    if (nb == 4)
+      solve_block<false, true>(r, q, dg, rinv, nb, jb, lane);
+    else
+      solve_block<false, false>(r, q, dg, rinv, nb, jb, lane);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) q[a][b] = qn[a][b];
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kSmallThreads, 1)
+btd_small_kernel(const float* __restrict__ D, const float* __restrict__ L,
+                 const float* __restrict__ b, float* __restrict__ x, int K, int n) {
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int lds = cs_pitch(n), ldm = n + 1, npk = packed_floats(n);
+  const size_t nn = (size_t)n * n, s = blockIdx.x;
+  // CS(i) and Ls(i), i = 0, 1: the two buffers of each kind
+  float* const cs0 = reinterpret_cast<float*>(smem4);
+  float* const ls0 = cs0 + 2 * n * lds;
+  auto CS = [=](int i) { return cs0 + i * n * lds; };
+  auto Ls = [=](int i) { return ls0 + i * round4(n * n); };
+  float* const M = ls0 + 2 * round4(n * n);
+  float* const Y = M + round4((n + 1) * (n + 1));
+  float* const F = Y + round4(K * n);
+  float* const v = F + (size_t)K * npk;
+  const float* const Db = D + s * K * nn;
+  const float* const Lb = L + s * (K - 1) * nn;
+  float* const xb = x + s * K * n;
+
+  // The row solves' warps 1..row_warps and the named barriers they share
+  // with warp 0: column block jb of a Cholesky is handed on at barrier
+  // 1 + group(jb), in at most kNamedBarriers groups of blocks.
+  const int row_warps = (n + 32) / 32, T = (n + 3) >> 2, G = min(T, kNamedBarriers);
+  const int hand_count = 32 * (1 + row_warps);
+  auto group = [=](int jb) { return jb * G / T; };
+  auto hand_on = [=](int j0) {  // warp 0, after block j0 of the Cholesky
+    const int jb = j0 >> 2;
+    if (jb == T - 1 || group(jb + 1) != group(jb)) bar_arrive(1 + group(jb), hand_count);
+  };
+  auto take = [=](int j0) {  // the row warps, before block j0 of the row solves
+    const int jb = j0 >> 2;
+    if (jb == 0 || group(jb - 1) != group(jb)) bar_sync(1 + group(jb), hand_count);
+  };
+
+  copy_span(Y, b + s * K * n, K * n, tid, kSmallThreads);
+  copy_rows(CS(0), lds, Db, n, tid, kSmallThreads);
+  if (K > 1) {
+    copy_span(Ls(0), Lb, n * n, tid, kSmallThreads);
+    copy_rows(CS(1), lds, Db + nn, n, tid, kSmallThreads);
+  }
+  if (K > 2) copy_span(Ls(1), Lb + nn, n * n, tid, kSmallThreads);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  for (int k = 0; k < K; ++k) {
+    float* const S = CS(k & 1);  // D_k -> S_k -> C_k
+    if (k > 0) {
+      // D_{k+1} and L_{k+1} into the buffers the row solves are done with
+      if (k + 1 < K) copy_rows(CS((k + 1) & 1), lds, Db + (k + 1) * nn, n, tid, kSmallThreads);
+      if (k + 1 < K - 1) copy_span(Ls((k + 1) & 1), Lb + (k + 1) * nn, n * n, tid, kSmallThreads);
+      if (tid < kTileThreads) {
+        rank_tiles(S, M, n, lds, ldm, tid, kTileThreads);  // S_k = D_k - M M^T
+      } else if (tid - kTileThreads < n) {                // y_k = b_k - M z
+        const int i = tid - kTileThreads;
+        const float* Mi = M + i * ldm;
+        const float* z = M + n * ldm;
+        float* yk = Y + (size_t)k * n;
+        float y = yk[i];
+#pragma unroll 4
+        for (int c = 0; c < n; ++c) {
+          const float zc = z[c];
+          y -= Mi[c] * zc;
+        }
+        yk[i] = y;
+      }
+      __syncthreads();
+    }
+    if (warp == 0) {  // C_k
+      if (k + 1 < K)
+        chol_inplace(S, F + (size_t)k * npk, n, lds, lane, hand_on);
+      else
+        chol_inplace(S, F + (size_t)k * npk, n, lds, lane);
+    } else if (k + 1 < K && warp <= row_warps) {  // M C_k^T = L_k and C_k z = y_k, behind it
+      const int r = tid - 32;
+      float* const out = M + min(r, n) * ldm;
+      const float* const in = r < n ? Ls(k & 1) + r * n : Y + (size_t)k * n;
+      for (int j0 = 0; j0 < n; j0 += 4) {
+        __syncwarp();  // the whole warp, threads without a row too, at the barrier
+        take(j0);
+        if (r <= n) forward_row_block(out, in, S, n, lds, j0);
+      }
+    }
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+
+  // ---- back substitution (warp 0) -----------------------------------------
+  // L_k comes into CS(0) or CS(1), alternately, a step ahead.
+  if (warp != 0) return;
+  const int i0 = 4 * lane;
+  float rr[4];
+  const float* yk = Y + (size_t)(K - 1) * n;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) rr[a] = i0 + a < n ? yk[i0 + a] : 0.f;
+  if (K > 1) copy_span(CS(0), Lb + (K - 2) * nn, n * n, lane, 32);
+  chol_solve_rows(F + (size_t)(K - 1) * npk, rr, n, lane);
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    if (i0 + a < n) {
+      xb[(size_t)(K - 1) * n + i0 + a] = rr[a];
+      v[i0 + a] = rr[a];
+    }
+  }
+  for (int k = K - 2; k >= 0; --k) {
+    const int odd = (K - 2 - k) & 1;
+    const float* const Lc = CS(odd);
+    cp_wait();  // L_k in Lc; x_{k+1} in v
+    if (k > 0) copy_span(CS(odd ^ 1), Lb + (k - 1) * nn, n * n, lane, 32);
+    // rhs = y_k - L_k^T x_{k+1}, in the order of btd_kernel's
+    yk = Y + (size_t)k * n;
+#pragma unroll
+    for (int a = 0; a < 4; ++a) rr[a] = i0 + a < n ? yk[i0 + a] : 0.f;
+    if ((n & 3) == 0 && i0 < n) {
+#pragma unroll 4
+      for (int q = 0; q < n; ++q) {
+        const float vq = v[q];
+        const float4 l4 = ld4(Lc + q * n + i0);
+        rr[0] -= l4.x * vq;
+        rr[1] -= l4.y * vq;
+        rr[2] -= l4.z * vq;
+        rr[3] -= l4.w * vq;
+      }
+    } else if (i0 < n) {
+#pragma unroll 4
+      for (int q = 0; q < n; ++q) {
+        const float vq = v[q];
+        const float* Lq = Lc + q * n + i0;
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+          if (i0 + a < n) rr[a] -= Lq[a] * vq;
+      }
+    }
+    // Every lane's reads of v feed its shuffles in chol_solve_rows, and the
+    // writes of x_k come after the last of them.
+    chol_solve_rows(F + (size_t)k * npk, rr, n, lane);
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      if (i0 + a < n) {
+        xb[(size_t)k * n + i0 + a] = rr[a];
+        v[i0 + a] = rr[a];
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" size_t btd_smem_bytes(int n) {
@@ -596,6 +1048,47 @@ extern "C" int btd_solve_f32(const void* D, const void* L, const void* b, void* 
   void* args[] = {&Df, &Lf, &bf, &xf, &Cf, &B, &K, &n, &vec4};
   err = cudaLaunchKernel(reinterpret_cast<const void*>(&btd_kernel), dim3(grid), dim3(kWarps * 32),
                          args, smem, static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// Shared memory of the small kernel at width n and K knots, in bytes.
+extern "C" size_t btd_small_smem_bytes(int n, int K) {
+  return sizeof(float) * small_floats(n, K);
+}
+
+// Which kernel a solve at (B, K, n) takes: 1 the small kernel
+// (btd_small_solve_f32), while B is at most kSmallPerSm scenarios per SM of
+// the current device and its factors fit in a block's shared memory; 0
+// btd_kernel (btd_solve_f32); minus a CUDA error code on error.
+extern "C" int btd_pick_small(int B, int K, int n) {
+  if (B <= 0 || K <= 0 || n <= 0 || n > kMaxN) return -(int)cudaErrorInvalidValue;
+  int dev = 0, sms = 0, optin = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess)
+    return -(int)err;
+  return (long long)B <= (long long)kSmallPerSm * sms && btd_small_smem_bytes(n, K) <= (size_t)optin;
+}
+
+// Launches one solve by the small kernel, one block per scenario, on
+// `stream`; returns the launch's CUDA error (0 when it was accepted).  Its
+// arguments are btd_solve_f32's; it takes no scratch (C is not read).
+extern "C" int btd_small_solve_f32(const void* D, const void* L, const void* b, void* x, void* C,
+                                   int B, int K, int n, void* stream) {
+  (void)C;
+  if (B <= 0 || K <= 0 || n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
+  const size_t smem = btd_small_smem_bytes(n, K);
+  cudaError_t err = cudaFuncSetAttribute(btd_small_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const float* Df = static_cast<const float*>(D);
+  const float* Lf = static_cast<const float*>(L);
+  const float* bf = static_cast<const float*>(b);
+  float* xf = static_cast<float*>(x);
+  void* args[] = {&Df, &Lf, &bf, &xf, &K, &n};
+  err = cudaLaunchKernel(btd_small_kernel, dim3(B), dim3(kSmallThreads), args, smem,
+                         static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }

@@ -7,7 +7,10 @@ using EmuKernelSig = void(const float*, const float*, const float*, float*, floa
 #include "cuda_runtime.h"
 
 namespace {
-float4 smem4[kEmuSmemBytes / sizeof(float4)];
+// Page-aligned, with a guard page: a read past a launch's shared memory
+// faults where its end falls on a page boundary (cuda_runtime.h).
+alignas(kEmuSmemGuardBytes) float4 smem4[(kEmuSmemBytes + kEmuSmemGuardBytes) / sizeof(float4)];
+[[maybe_unused]] const bool guarded = (emu_smem_guard = true);
 }
 float* emu_smem_base = reinterpret_cast<float*>(smem4);
 

@@ -21,17 +21,20 @@
 //
 // With QTOS_EMU_THREAD_ORDER=1 (or -1) in the environment of a launch, the
 // threads of each block run one at a time, in ascending (descending) order
-// of threadIdx.x, each from one __syncthreads to the next: a read that a
-// missing block barrier leaves unordered then reads shared memory, in one
-// of the two orders, before the thread that writes it has run.  Warp
-// barriers and shuffles are not taken in that mode.
+// of threadIdx.x, each from one barrier (__syncthreads, __syncwarp, a
+// shuffle) to the next: a read that a missing barrier leaves unordered then
+// reads shared memory, in one of the two orders, before the thread that
+// writes it has run.
 //
 // A launch through the typed cudaLaunchKernel needs nothing more.  For one
 // through the untyped (const void*) launch the including file defines
 // EmuKernelSig, the kernel's signature, before it includes this header; a
 // file that launches only by type defines EMU_TYPED_LAUNCH_ONLY instead.
 // The including file also defines `emu_smem_base`, the dynamic shared
-// memory.
+// memory.  Where it sets `emu_smem_guard` (a page-aligned array of
+// kEmuSmemBytes + kEmuSmemGuardBytes), the pages past the launch's shared
+// memory are made inaccessible while its blocks run, so a read past the
+// end faults where that end falls on a page boundary.
 #pragma once
 
 #include <chrono>
@@ -43,10 +46,12 @@
 #include <cstdlib>
 #include <cstring>
 #include <deque>
+#include <map>
 #include <memory>
 #include <mutex>
 #include <thread>
 #include <utility>
+#include <sys/mman.h>
 #include <vector>
 
 #define __global__
@@ -74,7 +79,7 @@ enum cudaFuncAttribute {
   cudaFuncAttributePreferredSharedMemoryCarveout = 9
 };
 enum { cudaSharedmemCarveoutMaxShared = 100 };
-enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16, cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 
@@ -110,84 +115,174 @@ inline thread_local EmuWarp* emu_warp = nullptr;
 inline thread_local EmuBarrier* emu_block = nullptr;
 
 // The turns of a block's threads when they run one at a time
-// (QTOS_EMU_THREAD_ORDER): `turn` is the thread that may run; a thread passes it
-// on at each __syncthreads and when it ends.
+// (QTOS_EMU_THREAD_ORDER): `turn` is the thread that may run.  A thread
+// passes the turn on when it waits at a barrier and when it ends; it goes to
+// the next thread in the launch's order (ascending or descending
+// threadIdx.x, cyclically) that is not waiting, so after the last thread of
+// a block barrier arrives the first one runs again.  Every barrier is a
+// group of threads keyed by what it joins: kBlockKey the block
+// (__syncthreads, which counts the threads still running), kWarpKey + w the
+// 32 threads of warp w (__syncwarp, and the shuffles' exchanges),
+// kNamedKey + id the named barrier id (bar.sync, bar.arrive).
 struct EmuTurns {
+  static constexpr long kBlockKey = 0, kWarpKey = 1, kNamedKey = 1 << 20;
+  enum State : char { kRun, kWait, kDone };
+  struct Group {
+    std::vector<int> waiting;
+    int arrived = 0;
+  };
   std::mutex m;
   std::unique_ptr<std::condition_variable[]> cv;  // one per thread: a pass wakes only its thread
-  int size = 0, turn = -1, arrived = 0, alive = 0, step = 1;
-  std::vector<char> done;
+  int size = 0, turn = -1, alive = 0, step = 1;
+  std::vector<char> state;
+  std::map<long, Group> groups;
 
   int first() const {
     for (int i = 0; i < size; ++i) {
       const int t = step > 0 ? i : size - 1 - i;
-      if (!done[t]) return t;
+      if (state[t] == kRun) return t;
     }
     return -1;
   }
+  // The next thread after t, cyclically, that may run (t itself last).
   int after(int t) const {
-    for (int u = t + step; u >= 0 && u < size; u += step)
-      if (!done[u]) return u;
+    for (int i = 1; i <= size; ++i) {
+      const int u = ((t + step * i) % size + size) % size;
+      if (state[u] == kRun) return u;
+    }
     return -1;
   }
   void wait_turn(std::unique_lock<std::mutex>& lk, int t) {
     if (!cv[t].wait_for(lk, std::chrono::seconds(600), [&] { return turn == t; })) {
-      std::fprintf(stderr, "cuda_emu: a block barrier timed out (a thread that missed __syncthreads?)\n");
+      std::fprintf(stderr, "cuda_emu: a barrier timed out (a thread that missed __syncthreads?)\n");
       std::abort();
     }
+  }
+  // Gives the turn to the next thread that may run and waits for it to come back.
+  void pass(std::unique_lock<std::mutex>& lk, int t) {
+    turn = after(t);
+    if (turn < 0) {
+      std::fprintf(stderr, "cuda_emu: every thread waits at a barrier that no thread can complete\n");
+      std::abort();
+    }
+    if (turn != t) {
+      cv[turn].notify_one();
+      wait_turn(lk, t);
+    }
+  }
+  void release(long key) {
+    auto it = groups.find(key);
+    for (int u : it->second.waiting) state[u] = kRun;
+    groups.erase(it);
   }
   void start(int t) {
     std::unique_lock<std::mutex> lk(m);
     wait_turn(lk, t);
   }
-  void barrier(int t) {
+  // Thread t arrives at the barrier `key` of `count` threads (0: every
+  // thread still running) and waits until the group is complete.
+  void barrier(int t, long key, int count) {
     std::unique_lock<std::mutex> lk(m);
-    if (++arrived == alive) {
-      arrived = 0;
-      turn = first();
+    Group& g = groups[key];
+    if (++g.arrived >= (count ? count : alive)) {
+      release(key);
     } else {
-      turn = after(t);
+      g.waiting.push_back(t);
+      state[t] = kWait;
     }
-    if (turn >= 0) cv[turn].notify_one();
-    wait_turn(lk, t);
+    pass(lk, t);
+  }
+  // A thread arrives at the barrier `key` of `count` threads and goes on.
+  void arrive(long key, int count) {
+    std::unique_lock<std::mutex> lk(m);
+    if (++groups[key].arrived >= count) release(key);
   }
   void finish(int t) {
     std::unique_lock<std::mutex> lk(m);
-    done[t] = 1;
+    state[t] = kDone;
     --alive;
-    turn = arrived > 0 && arrived == alive ? (arrived = 0, first()) : after(t);
-    if (turn >= 0) cv[turn].notify_one();
+    auto it = groups.find(kBlockKey);
+    if (it != groups.end() && it->second.arrived >= alive) release(kBlockKey);
+    turn = after(t);
+    if (turn >= 0) {
+      cv[turn].notify_one();
+    } else {
+      for (int u = 0; u < size; ++u) {
+        if (state[u] == kWait) {
+          std::fprintf(stderr, "cuda_emu: a thread ended while others wait at a barrier it never reaches\n");
+          std::abort();
+        }
+      }
+    }
   }
 };
 inline thread_local EmuTurns* emu_turns = nullptr;
 
-inline void emu_no_turns(const char* what) {
-  if (emu_turns) {
-    std::fprintf(stderr, "cuda_emu: %s is not taken when threads run one at a time\n", what);
-    std::abort();
+// A named barrier of the block (PTX bar.sync / bar.arrive with a thread
+// count) when its threads run at once.
+struct EmuNamedBarrier {
+  std::mutex m;
+  std::condition_variable cv;
+  int arrived = 0, gen = 0;
+
+  void arrive(int count, bool wait) {
+    std::unique_lock<std::mutex> lk(m);
+    const int g = gen;
+    if (++arrived == count) {
+      arrived = 0;
+      ++gen;
+      cv.notify_all();
+      return;
+    }
+    if (wait && !cv.wait_for(lk, std::chrono::seconds(60), [&] { return gen != g; })) {
+      std::fprintf(stderr, "cuda_emu: a named barrier timed out (a thread that missed bar.sync or bar.arrive?)\n");
+      std::abort();
+    }
   }
+};
+constexpr int kEmuNamedBarriers = 16;
+inline thread_local EmuNamedBarrier* emu_named = nullptr;
+
+inline void emu_warp_wait() {
+  if (emu_turns)
+    emu_turns->barrier((int)threadIdx.x, EmuTurns::kWarpKey + threadIdx.x / 32, 32);
+  else
+    emu_warp->wait();
 }
 
-inline void __syncwarp(unsigned = 0xffffffffu) {
-  emu_no_turns("__syncwarp");
-  emu_warp->wait();
-}
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_wait(); }
 // The block's barrier waits longer: one warp may run a whole loop of
 // shuffles while the others wait there.
 inline void __syncthreads() {
   if (emu_turns)
-    emu_turns->barrier((int)threadIdx.x);
+    emu_turns->barrier((int)threadIdx.x, EmuTurns::kBlockKey, 0);
   else
     emu_block->wait(600, "a block barrier (a thread that missed __syncthreads?)");
 }
 
+// Named barrier `id` (1..15; 0 is __syncthreads') of `count` threads:
+// bar_sync waits for the others, bar_arrive counts the thread and goes on.
+// On the card these are the PTX instructions of the same names.
+inline void bar_sync(int id, int count) {
+  if (emu_turns)
+    emu_turns->barrier((int)threadIdx.x, EmuTurns::kNamedKey + id, count);
+  else
+    emu_named[id].arrive(count, true);
+}
+inline void bar_arrive(int id, int count) {
+  if (emu_turns)
+    emu_turns->arrive(EmuTurns::kNamedKey + id, count);
+  else
+    emu_named[id].arrive(count, false);
+}
+#define QTOS_EMU_NAMED_BARRIERS 1
+
 inline float __shfl_sync(unsigned, float v, int src) {
-  emu_no_turns("__shfl_sync");
-  emu_warp->wait();
+  emu_warp_wait();
   emu_warp->slot[threadIdx.x & 31] = v;
-  emu_warp->wait();
+  emu_warp_wait();
   const float r = emu_warp->slot[src & 31];
-  emu_warp->wait();
+  emu_warp_wait();
   return r;
 }
 
@@ -251,13 +346,29 @@ inline cudaError_t cudaGetDevice(int* dev) {
   *dev = 0;
   return cudaSuccess;
 }
-inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr, int) {
-  *value = kEmuSms;
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr, int) {
+  *value = attr == cudaDevAttrMaxSharedMemoryPerBlockOptin ? (int)kEmuSmemBytes : kEmuSms;
   return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 extern float* emu_smem_base;
+constexpr size_t kEmuSmemGuardBytes = 4096;
+inline bool emu_smem_guard = false;
+
+// Makes the guarded array's pages past `smem` bytes inaccessible (on) or
+// accessible again (off).
+inline void emu_guard_smem(size_t smem, bool on) {
+  if (!emu_smem_guard) return;
+  const size_t page = kEmuSmemGuardBytes;
+  const size_t from = (smem + page - 1) / page * page;
+  const size_t to = (kEmuSmemBytes + page) / page * page;  // the array's last whole page
+  char* base = reinterpret_cast<char*>(emu_smem_base);
+  if (from < to && mprotect(base + from, to - from, on ? PROT_NONE : PROT_READ | PROT_WRITE) != 0) {
+    std::fprintf(stderr, "cuda_emu: mprotect of the shared memory's guard failed\n");
+    std::abort();
+  }
+}
 
 template <class... A, size_t... I>
 void emu_call(void (*f)(A...), void** args, std::index_sequence<I...>) {
@@ -273,14 +384,16 @@ cudaError_t emu_launch(void (*f)(A...), dim3 grid, dim3 block, void** args, size
   const int order = env == nullptr || env[0] == '\0' ? 0 : (std::atoi(env) < 0 ? -1 : 1);
   for (unsigned bx = 0; bx < grid.x; ++bx) {
     if (smem) std::memset(emu_smem_base, 0xff, smem);  // NaNs, as uninitialised shared memory may hold
+    emu_guard_smem(smem, true);
     std::vector<EmuWarp> warps(block.x / 32);
     EmuBarrier block_barrier;
     block_barrier.size = (int)block.x;
+    std::unique_ptr<EmuNamedBarrier[]> named(new EmuNamedBarrier[kEmuNamedBarriers]);
     EmuTurns turns;
     if (order != 0) {
       turns.size = turns.alive = (int)block.x;
       turns.step = order;
-      turns.done.assign(block.x, 0);
+      turns.state.assign(block.x, EmuTurns::kRun);
       turns.cv.reset(new std::condition_variable[block.x]);
       turns.turn = turns.first();
     }
@@ -293,6 +406,7 @@ cudaError_t emu_launch(void (*f)(A...), dim3 grid, dim3 block, void** args, size
         gridDim = grid;
         emu_warp = &warps[t / 32];
         emu_block = &block_barrier;
+        emu_named = named.get();
         emu_turns = turns.size ? &turns : nullptr;
         if (emu_turns) emu_turns->start((int)t);
         emu_call(f, args, std::index_sequence_for<A...>{});
@@ -304,6 +418,7 @@ cudaError_t emu_launch(void (*f)(A...), dim3 grid, dim3 block, void** args, size
       });
     }
     for (auto& th : threads) th.join();
+    emu_guard_smem(smem, false);
   }
   return cudaSuccess;
 }

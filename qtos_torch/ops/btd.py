@@ -5,11 +5,17 @@
 raises); on a CPU tensor it runs the plain version,
 `qtos_torch.ops.tridiag.block_tridiag_solve`.
 
-The kernel is compiled with `nvcc` for sm_90a at first use into
-`qtos_torch/_build/` (keyed by the source's hash) and loaded with ctypes.
-It solves one scenario per warp; its scratch holds the factors C_0 .. C_{K-2}
-of each scenario, lower triangles packed: (B, K-1, n(n+1)/2 rounded up to a
-multiple of 4) floats.
+The source holds two kernels, compiled with `nvcc` for sm_90a at first use
+into `qtos_torch/_build/` (keyed by the source's hash) and loaded with
+ctypes.  `btd_kernel` solves one scenario per warp, for large batches; its
+scratch holds the factors C_0 .. C_{K-2} of each scenario, lower triangles
+packed: (B, K-1, n(n+1)/2 rounded up to a multiple of 4) floats.  The
+small-batch kernel solves one scenario per block of 8 warps and keeps the
+factors in shared memory.  The library's `btd_pick_small` chooses between
+them from (B, K, n) before each launch: the small kernel while B is at most
+a fixed number of scenarios per SM (the crossover measured on an H100) and
+its factors fit in a block's shared memory.  The two give the same x bit for
+bit.  There is no fallback: a failed launch of either raises.
 """
 
 from __future__ import annotations
@@ -75,9 +81,11 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(build())
             vp = ctypes.c_void_p
-            lib.btd_solve_f32.argtypes = [vp, vp, vp, vp, vp,
-                                          ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
-            lib.btd_solve_f32.restype = ctypes.c_int
+            for fn in (lib.btd_solve_f32, lib.btd_small_solve_f32):
+                fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
+                fn.restype = ctypes.c_int
+            lib.btd_pick_small.argtypes = [ctypes.c_int] * 3
+            lib.btd_pick_small.restype = ctypes.c_int
             lib.btd_resident_warps.argtypes = [ctypes.c_int]
             lib.btd_resident_warps.restype = ctypes.c_int
             lib.btd_smem_bytes.argtypes = [ctypes.c_int]
@@ -97,6 +105,15 @@ def occupancy(n: int) -> dict:
     if warps <= 0:
         raise RuntimeError(f"btd occupancy query failed: CUDA error {-warps}")
     return {"warps_per_sm": warps, "smem_per_block": int(lib.btd_smem_bytes(n))}
+
+
+def picks_small(B: int, K: int, n: int) -> bool:
+    """Whether `btd_solve` at (B, K, n) on the current CUDA device launches
+    the small-batch kernel (else `btd_kernel`)."""
+    pick = _load().btd_pick_small(B, K, n)
+    if pick < 0:
+        raise RuntimeError(f"btd kernel choice failed at ({B}, {K}, {n}): CUDA error {-pick}")
+    return pick == 1
 
 
 def work(B: int, K: int, n: int) -> tuple:
@@ -139,7 +156,9 @@ def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     Returns:
       x: (B, K, n).
 
-    `btd_solve.launches` counts kernel launches.
+    `btd_solve.launches` counts kernel launches (one per call on CUDA),
+    `btd_solve.small_launches` those of them that went to the small-batch
+    kernel.
     """
     B, K, n = _check(D, L, b)
     if D.device.type == "cpu":
@@ -152,17 +171,23 @@ def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor) -> torch.Tensor
     if B == 0:
         return x
     lib = _load()
-    scratch = torch.empty((B, K - 1, lib.btd_packed_floats(n)), dtype=D.dtype, device=D.device)
     with torch.cuda.device(D.device):
+        small = picks_small(B, K, n)
+        if small:
+            launch, scratch = lib.btd_small_solve_f32, None
+        else:
+            launch = lib.btd_solve_f32
+            scratch = torch.empty((B, K - 1, lib.btd_packed_floats(n)), dtype=D.dtype, device=D.device)
         stream = torch.cuda.current_stream(D.device).cuda_stream
-        err = lib.btd_solve_f32(
-            D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(),
-            B, K, n, stream,
-        )
+        err = launch(D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(),
+                     None if scratch is None else scratch.data_ptr(), B, K, n, stream)
     if err != 0:
-        raise RuntimeError(f"btd kernel launch failed: CUDA error {err}")
+        kind = "small-batch" if small else "btd"
+        raise RuntimeError(f"{kind} kernel launch failed at ({B}, {K}, {n}): CUDA error {err}")
     btd_solve.launches += 1
+    btd_solve.small_launches += small
     return x
 
 
 btd_solve.launches = 0
+btd_solve.small_launches = 0

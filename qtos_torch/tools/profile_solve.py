@@ -9,9 +9,9 @@ For each size it prints
 
   - the 15 device kernels with the most device time, with their launch
     counts;
-  - the BTD kernel's and the assembly kernel's shares of the device time
-    (`btd_kernel`, `assemble_kernel`, launched through ctypes, so they have
-    no aten operation of their own);
+  - the BTD solve's and the assembly kernel's shares of the device time
+    (`btd_kernel` or, at small batches, `btd_small_kernel`; `assemble_kernel`;
+    launched through ctypes, so they have no aten operation of their own);
   - assembly's share: the device time of the kernels that the profiled
     call's own `assemble` calls launched (each call marked with a
     `record_function` range, rescue passes on their subsets included) and of
@@ -154,7 +154,10 @@ def profile_once(B: int, K: int = 41, device=None) -> dict:
         by_name[e.name] += float(e.device_time)
         counts[e.name] += 1
     device_us = sum(by_name.values())
-    btd_us = sum(t for name, t in by_name.items() if "btd_kernel" in name)
+    def is_btd(name):
+        return "btd_kernel" in name or "btd_small_kernel" in name
+
+    btd_us = sum(t for name, t in by_name.items() if is_btd(name))
     asm_us = sum(t for name, t in by_name.items() if "assemble_kernel" in name)
     out.update(
         top_kernels=[dict(name=name, ms=t / 1e3, count=counts[name], share=t / device_us)
@@ -162,7 +165,7 @@ def profile_once(B: int, K: int = 41, device=None) -> dict:
         device_busy_ms=busy_us / 1e3,
         span_ms=prof["span_us"] / 1e3,
         btd_share=btd_us / device_us,
-        btd_launches=sum(c for name, c in counts.items() if "btd_kernel" in name),
+        btd_launches=sum(c for name, c in counts.items() if is_btd(name)),
         assemble_kernel_share=asm_us / device_us,
         assemble_kernel_launches=sum(c for name, c in counts.items() if "assemble_kernel" in name),
         assemble_calls=prof["assemble_calls"],

@@ -34,7 +34,7 @@ from qtos_torch.ops import tick
 
 PROBE_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "op_cycles.cu")
 # The operations of the probe, in its order.
-OPS = ("fadd", "fmul", "div", "sqrt", "sin", "cos", "atan2", "acos", "shfl", "load")
+OPS = ("fadd", "fmul", "div", "sqrt", "sin", "cos", "atan2", "acos", "shfl", "load", "rsqrt", "lds", "bar")
 # The calls in tick.cu that stand for an operation of `OPS` ("/" a division).
 CALLS = {"sinf": "sin", "cosf": "cos", "atan2f": "atan2", "acosf": "acos", "sqrtf": "sqrt",
          "__shfl_sync": "shfl", "/": "div"}

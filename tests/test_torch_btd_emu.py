@@ -18,10 +18,18 @@ warp barrier, a misaligned copy) fails one test instead of the test worker.
 The stand-in reports 2 SMs with 1 block of 4 warps each, so a batch of more
 than 8 scenarios walks the grid more than once.
 
+The small-batch kernel of the same source (one scenario per block of 8
+warps) is held to `btd_kernel` bit for bit at every shape it takes, with
+the block's threads at once and one at a time in either order
+(`QTOS_EMU_THREAD_ORDER`), and a copy without each of its block barriers
+and copy waits must fail.  The rule that picks between the two kernels is
+checked at the edge of the shared memory the small kernel's factors need.
+
 Tolerance atol=5e-4 as tests/test_pallas_btd.py: float32 block Thomas on
 diagonally dominant systems with O(1) solutions.
 """
 
+import ctypes
 import os
 import re
 import shutil
@@ -38,36 +46,50 @@ ATOL = 5e-4
 EMU_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "qtos_torch", "csrc", "emu")
 
-# Loads the library, solves the system saved in the directory, saves x.
+# Loads the library, solves the system saved in the directory with each
+# entry named after the mode (btd_solve_f32 when none), saves each x.
 _RUN = r"""
 import ctypes, sys
 import numpy as np
-d = sys.argv[2]
-lib = ctypes.CDLL(sys.argv[1])
-vp = ctypes.c_void_p
-lib.btd_solve_f32.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
-lib.btd_packed_floats.argtypes = [ctypes.c_int]
+lib_path, d, mode, *entries = sys.argv[1:]
+lib = ctypes.CDLL(lib_path)
+vp, ci = ctypes.c_void_p, ctypes.c_int
+lib.btd_packed_floats.argtypes = [ci]
 D, L, b = (np.load(f"{d}/{k}.npy") for k in "DLb")
 B, K, n = b.shape
-if sys.argv[3] == "misaligned":  # D one float past a 16-byte boundary: 4-byte copies
+if mode == "misaligned":  # D one float past a 16-byte boundary: 4-byte copies
     buf = np.zeros(D.size + 4, np.float32)
     D2 = buf[1:1 + D.size].reshape(D.shape)
     D2[...] = D
     D = D2
-x = np.full_like(b, np.nan)
-C = np.full((B, max(K - 1, 1), lib.btd_packed_floats(n)), np.nan, np.float32)
-err = lib.btd_solve_f32(D.ctypes.data, L.ctypes.data, b.ctypes.data, x.ctypes.data,
-                        C.ctypes.data, B, K, n, None)
-assert err == 0, err
-np.save(f"{d}/x.npy", x)
+for entry in entries or ["btd_solve_f32"]:
+    fn = getattr(lib, entry)
+    fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    x = np.full_like(b, np.nan)
+    C = np.full((B, max(K - 1, 1), lib.btd_packed_floats(n)), np.nan, np.float32)
+    err = fn(D.ctypes.data, L.ctypes.data, b.ctypes.data, x.ctypes.data, C.ctypes.data, B, K, n, None)
+    assert err == 0, (entry, err)
+    np.save(f"{d}/x_{entry}.npy", x)
 """
 
+WARP, SMALL = "btd_solve_f32", "btd_small_solve_f32"
 
 KERNEL_SRC = os.path.join(os.path.dirname(EMU_DIR), "btd.cu")
 with open(KERNEL_SRC) as _f:
     KERNEL_LINES = _f.readlines()
-# Indices of the lines of btd.cu that call cp_wait.
-CP_WAITS = [i for i, line in enumerate(KERNEL_LINES) if re.search(r"\bcp_wait\(\);", line)]
+# Indices of the lines of btd.cu that call cp_wait in btd_kernel's functions.
+_SMALL_START = next(i for i, line in enumerate(KERNEL_LINES) if "---- the small-batch kernel" in line)
+CP_WAITS = [i for i, line in enumerate(KERNEL_LINES[:_SMALL_START]) if re.search(r"\bcp_wait\(\);", line)]
+# Indices of the lines of the small kernel that hold a barrier (a block's,
+# or a named one between warps) or wait for copies.
+_SMALL_BODY = next(i for i, line in enumerate(KERNEL_LINES) if line.startswith("btd_small_kernel("))
+_SYNC = r"__syncthreads\(\);|__pipeline_wait_prior\(0\);|\bcp_wait\(\);|\bbar_(sync|arrive)\([^;]*\);"
+SMALL_SYNCS = [i for i in range(_SMALL_BODY, next(i for i in range(_SMALL_BODY, len(KERNEL_LINES))
+                                                  if KERNEL_LINES[i].startswith("}")))
+               if re.search(_SYNC, KERNEL_LINES[i])]
+# Scenarios per SM up to which the small kernel runs, as the source fixes it.
+SMALL_PER_SM = int(re.search(r"constexpr int kSmallPerSm = (\d+);", "".join(KERNEL_LINES)).group(1))
+EMU_SMS, EMU_SMEM = 2, 232448  # the stand-in's card (emu/cuda_runtime.h)
 
 
 def _build(cpp, out):
@@ -98,20 +120,22 @@ def _system(B, K, n, seed):
     return D, L, xt
 
 
-def _emu_run(lib, tmp_path, D, L, b, mode="aligned"):
-    """Returns the solving subprocess and x (None when the subprocess failed)."""
+def _emu_run(lib, tmp_path, D, L, b, mode="aligned", entries=(WARP,), env=None):
+    """Returns the solving subprocess and x of each entry (None when the
+    subprocess failed)."""
     for k, a in zip("DLb", (D, L, b)):
         np.save(tmp_path / f"{k}.npy", np.ascontiguousarray(a, dtype=np.float32))
-    proc = subprocess.run([sys.executable, "-c", _RUN, lib, str(tmp_path), mode],
-                          capture_output=True, text=True, timeout=600)
-    x = torch.from_numpy(np.load(tmp_path / "x.npy")) if proc.returncode == 0 else None
-    return proc, x
+    proc = subprocess.run([sys.executable, "-c", _RUN, lib, str(tmp_path), mode, *entries],
+                          capture_output=True, text=True, timeout=600, env=env)
+    if proc.returncode != 0:
+        return proc, None
+    return proc, {e: torch.from_numpy(np.load(tmp_path / f"x_{e}.npy")) for e in entries}
 
 
-def _emu_solve(lib, tmp_path, D, L, b, mode="aligned"):
-    proc, x = _emu_run(lib, tmp_path, D, L, b, mode)
+def _emu_solve(lib, tmp_path, D, L, b, mode="aligned", entries=(WARP,), env=None):
+    proc, xs = _emu_run(lib, tmp_path, D, L, b, mode, entries, env)
     assert proc.returncode == 0, proc.stderr[-2000:]
-    return x
+    return xs if len(entries) > 1 else xs[entries[0]]
 
 
 @pytest.mark.parametrize(
@@ -148,10 +172,11 @@ def test_emulated_kernel_pivot_clamp(emu_lib, tmp_path):
     L[:, 0, :, 3] = 0
     Dt, Lt = torch.from_numpy(D), torch.from_numpy(L)
     b = block_tridiag_matvec(Dt, Lt, torch.from_numpy(xt)).contiguous()
-    x = _emu_solve(emu_lib, tmp_path, D, L, b.numpy())
-    xp = block_tridiag_solve(Dt, Lt, b)
+    xs = _emu_solve(emu_lib, tmp_path, D, L, b.numpy(), entries=(WARP, SMALL))
+    x, xp = xs[WARP], block_tridiag_solve(Dt, Lt, b)
     assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(xp).all())
     torch.testing.assert_close(x, xp, rtol=1e-4, atol=ATOL)
+    assert torch.equal(xs[SMALL], x), "the small kernel's x is not btd_kernel's bit for bit"
 
 
 def test_kernel_source_has_cp_waits():
@@ -178,7 +203,146 @@ def test_emulated_kernel_needs_each_cp_wait(tmp_path, line):
     b = block_tridiag_matvec(Dt, Lt, torch.from_numpy(xt)).contiguous()
     run_dir = tmp_path / "run"
     run_dir.mkdir()
-    proc, x = _emu_run(lib, run_dir, D, L, b.numpy())
+    proc, xs = _emu_run(lib, run_dir, D, L, b.numpy())
     if proc.returncode == 0:
-        close = torch.allclose(x, block_tridiag_solve(Dt, Lt, b), rtol=0, atol=ATOL)
+        close = torch.allclose(xs[WARP], block_tridiag_solve(Dt, Lt, b), rtol=0, atol=ATOL)
         assert not close, f"the kernel without the cp_wait at btd.cu:{line + 1} still agrees"
+
+
+# ---- the small-batch kernel --------------------------------------------------
+
+
+@pytest.mark.parametrize(
+    "B,K,n,mode,order",
+    [
+        (3, 9, 36, "aligned", ""),      # the path's width; knots of both parities
+        (2, 2, 33, "aligned", ""),      # 4-byte copies; row threads on a third warp
+        (2, 9, 5, "aligned", ""),       # one partial column block
+        (2, 1, 36, "aligned", ""),      # K = 1: no L, no forward step
+        (1, 17, 64, "aligned", ""),     # the widest block, the most knots whose factors fit at n = 64
+        (3, 2, 36, "misaligned", ""),   # D not 16-byte aligned: 4-byte copies of D
+        (2, 11, 36, "aligned", ""),     # shared memory ending on a page: a read past it faults
+        (2, 3, 36, "aligned", "1"),     # the block's threads one at a time, ascending
+        (2, 3, 36, "aligned", "-1"),    # and descending
+        (1, 2, 5, "aligned", "-1"),
+    ],
+)
+def test_small_kernel_equals_warp_kernel(emu_lib, tmp_path, B, K, n, mode, order):
+    """The small kernel's x is btd_kernel's bit for bit, and the plain
+    version's within ATOL."""
+    D, L, xt = _system(B, K, n, 1000 + B * 100 + K * 10 + n)
+    Dt, Lt = torch.from_numpy(D), torch.from_numpy(L)
+    b = block_tridiag_matvec(Dt, Lt, torch.from_numpy(xt)).contiguous()
+    xs = _emu_solve(emu_lib, tmp_path, D, L, b.numpy(), mode, (WARP, SMALL),
+                    env=dict(os.environ, QTOS_EMU_THREAD_ORDER=order))
+    assert torch.equal(xs[SMALL], xs[WARP]), f"largest difference {float((xs[SMALL] - xs[WARP]).abs().max())}"
+    torch.testing.assert_close(xs[SMALL], block_tridiag_solve(Dt, Lt, b), rtol=0, atol=ATOL)
+
+
+def _emu_library(path):
+    lib = ctypes.CDLL(path)
+    lib.btd_pick_small.argtypes = [ctypes.c_int] * 3
+    lib.btd_small_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.btd_small_smem_bytes.restype = ctypes.c_size_t
+    return lib
+
+
+@pytest.mark.parametrize("n,K", [(36, 73), (64, 17), (5, 2756)])
+def test_pick_small_where_the_factors_fit(emu_lib, n, K):
+    """The small kernel takes a shape while its shared memory fits a block
+    (the stand-in's 232,448 bytes, an H100's), btd_kernel the next knot."""
+    lib = _emu_library(emu_lib)
+    assert lib.btd_small_smem_bytes(n, K) <= EMU_SMEM < lib.btd_small_smem_bytes(n, K + 1)
+    assert lib.btd_pick_small(1, K, n) == 1 and lib.btd_pick_small(1, K + 1, n) == 0
+
+
+def test_pick_small_up_to_the_crossover(emu_lib):
+    """The small kernel takes up to SMALL_PER_SM scenarios per SM, btd_kernel
+    more; a shape the kernels do not take is an error."""
+    lib = _emu_library(emu_lib)
+    edge = SMALL_PER_SM * EMU_SMS
+    assert [lib.btd_pick_small(B, 41, 36) for B in (1, edge, edge + 1)] == [1, 1, 0]
+    assert lib.btd_pick_small(0, 41, 36) < 0 and lib.btd_pick_small(1, 41, 65) < 0
+
+
+def test_small_kernel_refuses_factors_that_do_not_fit(emu_lib, tmp_path):
+    """Past the shared memory a block has, the small kernel's launch fails
+    (it computes nothing), and btd_kernel, which the rule picks there,
+    solves."""
+    D, L, xt = _system(1, 18, 64, 5)
+    Dt, Lt = torch.from_numpy(D), torch.from_numpy(L)
+    b = block_tridiag_matvec(Dt, Lt, torch.from_numpy(xt)).contiguous()
+    proc, _ = _emu_run(emu_lib, tmp_path, D, L, b.numpy(), entries=(WARP, SMALL))
+    assert proc.returncode != 0 and SMALL in proc.stderr
+    x = torch.from_numpy(np.load(tmp_path / f"x_{WARP}.npy"))
+    torch.testing.assert_close(x, block_tridiag_solve(Dt, Lt, b), rtol=0, atol=ATOL)
+
+
+def test_small_kernel_reads_stay_in_shared_memory(tmp_path):
+    """At (2, 11, 36) the small kernel's shared memory ends on a page, past
+    which the stand-in faults: a copy whose back pass lets the lanes past
+    the last row block read their own columns (4 lane, past the factors)
+    must abort."""
+    src = "".join(KERNEL_LINES)
+    clamp = "const int c0 = min(i0, 4 * (T - 1));"
+    assert src.count(clamp) == 1
+    (tmp_path / "emu").mkdir()
+    (tmp_path / "btd.cu").write_text(src.replace(clamp, "const int c0 = i0;"))
+    shutil.copy(os.path.join(EMU_DIR, "btd_emu.cpp"), tmp_path / "emu" / "btd_emu.cpp")
+    lib = _build(tmp_path / "emu" / "btd_emu.cpp", tmp_path / "libbtd_past.so")
+    D, L, xt = _system(2, 11, 36, 13)
+    b = block_tridiag_matvec(torch.from_numpy(D), torch.from_numpy(L), torch.from_numpy(xt)).contiguous()
+    run_dir = tmp_path / "run"
+    run_dir.mkdir()
+    proc, _ = _emu_run(lib, run_dir, D, L, b.numpy(), entries=(SMALL,))
+    assert proc.returncode != 0
+
+
+@pytest.fixture(scope="module")
+def drop_lib(tmp_path_factory):
+    """btd.cu with each barrier and copy wait of the small kernel left out
+    when the environment's QTOS_DROP_LINE names its line (1-based)."""
+    d = tmp_path_factory.mktemp("btd_drop")
+    lines = list(KERNEL_LINES)
+    for i in SMALL_SYNCS:
+        lines[i] = re.sub(_SYNC, lambda m, i=i: f"if (emu_keep({i + 1})) {{ {m.group(0)} }}", lines[i])
+    head = ('#include <cstdlib>\n'
+            'static bool emu_keep(int line) {\n'
+            '  static const int drop = std::atoi(std::getenv("QTOS_DROP_LINE") ? std::getenv("QTOS_DROP_LINE") : "0");\n'
+            '  return line != drop;\n'
+            '}\n')
+    (d / "emu").mkdir()
+    (d / "btd.cu").write_text(head + "".join(lines))
+    shutil.copy(os.path.join(EMU_DIR, "btd_emu.cpp"), d / "emu" / "btd_emu.cpp")
+    return _build(d / "emu" / "btd_emu.cpp", d / "libbtd_drop.so")
+
+
+def _small_agrees(lib, tmp_path, drop, order):
+    D, L, xt = _system(2, 4, 36, 11)
+    Dt, Lt = torch.from_numpy(D), torch.from_numpy(L)
+    b = block_tridiag_matvec(Dt, Lt, torch.from_numpy(xt)).contiguous()
+    proc, xs = _emu_run(lib, tmp_path, D, L, b.numpy(), entries=(WARP, SMALL),
+                        env=dict(os.environ, QTOS_DROP_LINE=str(drop), QTOS_EMU_THREAD_ORDER=order))
+    return proc.returncode == 0 and torch.equal(xs[SMALL], xs[WARP])
+
+
+def test_small_kernel_source_has_its_barriers():
+    held = "".join(KERNEL_LINES[i] for i in SMALL_SYNCS)
+    assert held.count("__syncthreads") >= 3 and "bar_sync" in held and "bar_arrive" in held, \
+        "the small kernel's stages end at __syncthreads, its columns are handed on at named barriers"
+
+
+@pytest.mark.parametrize("order", ["", "1", "-1"], ids=["parallel", "ascending", "descending"])
+def test_small_kernel_drop_harness_passes_the_source(drop_lib, tmp_path, order):
+    assert _small_agrees(drop_lib, tmp_path, 0, order)
+
+
+@pytest.mark.parametrize("line", [pytest.param(i, id=f"btd.cu:{i + 1}") for i in SMALL_SYNCS])
+def test_small_kernel_needs_each_barrier_and_wait(drop_lib, tmp_path, line):
+    """Without the barrier or copy wait on `line` the small kernel aborts or
+    parts from btd_kernel, with the block's threads at once or one at a
+    time in one of the two orders."""
+    for order in ("1", "-1", ""):  # one at a time first: a barrier nobody completes aborts at once there
+        if not _small_agrees(drop_lib, tmp_path, line + 1, order):
+            return
+    pytest.fail(f"the small kernel without btd.cu:{line + 1} ({KERNEL_LINES[line].strip()}) still agrees")

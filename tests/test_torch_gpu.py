@@ -15,19 +15,29 @@ The kernel solves one scenario per warp, four warps per block, and walks the
 batch by grid stride over the blocks that fit on the card at once (about
 2640 scenarios on an H100 at n=36), and gives each lane rows l and l + 32.
 The shapes cover those edges: B not a multiple of 4, B beyond one pass of
-the grid, n around 32 and at the limit 64, and K = 1, 2.
+the grid, n around 32 and at the limit 64, and K = 1, 2.  Up to two
+scenarios per SM (kSmallPerSm in btd.cu), and where its factors fit in
+shared memory, `btd_solve`
+launches the small-batch kernel of the same source (one scenario per
+block) instead: it is held to btd_kernel bit for bit at the paths' small
+shapes and on both sides of the rule.
 """
 
 import dataclasses
+import os
+import re
 
 import numpy as np
 import pytest
 import torch
 
-from qtos_torch.ops.btd import btd_solve
+from qtos_torch.ops import btd
+from qtos_torch.ops.btd import btd_solve, picks_small
 from qtos_torch.ops.tridiag import block_tridiag_matvec, block_tridiag_solve
 
 ATOL = 5e-4
+with open(btd.SOURCE) as _f:
+    SMALL_PER_SM = int(re.search(r"constexpr int kSmallPerSm = (\d+);", _f.read()).group(1))
 pytestmark = pytest.mark.gpu
 
 
@@ -91,6 +101,76 @@ def test_kernel_pivot_clamp(cuda):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(xp).all())
     torch.testing.assert_close(x, xp, rtol=1e-4, atol=ATOL)
+
+
+def _launch(entry, D, L, b):
+    """x from one launch of a kernel of btd.cu (`btd_solve_f32`: btd_kernel;
+    `btd_small_solve_f32`: the small-batch kernel), past the wrapper."""
+    lib = btd._load()
+    B, K, n = b.shape
+    x = torch.empty_like(b)
+    C = torch.empty((B, K - 1, lib.btd_packed_floats(n)), device=b.device)
+    err = getattr(lib, entry)(D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(), C.data_ptr(), B, K, n,
+                              torch.cuda.current_stream().cuda_stream)
+    assert err == 0, f"{entry} at ({B}, {K}, {n}): CUDA error {err}"
+    return x
+
+
+@pytest.mark.parametrize(
+    "B,K,n",
+    [
+        (1, 41, 36), (4, 41, 36), (20, 25, 36), (1, 33, 36),   # the TOWR window, a replan, the probe, the quick start
+        (2, 1, 36), (5, 2, 36), (2, 9, 5), (4, 3, 33), (3, 17, 64), (132, 41, 36), (1, 73, 36),
+    ],
+)
+def test_small_kernel_equals_btd_kernel(cuda, B, K, n):
+    """The small-batch kernel gives btd_kernel's x bit for bit, within ATOL
+    of the plain version."""
+    D, L, b, _ = _system(B, K, n, 9, cuda)
+    xs, xw = _launch("btd_small_solve_f32", D, L, b), _launch("btd_solve_f32", D, L, b)
+    torch.cuda.synchronize()
+    assert torch.equal(xs, xw), float((xs - xw).abs().max())
+    torch.testing.assert_close(xs, block_tridiag_solve(D, L, b), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("side", ["at", "past"])
+def test_dispatch_on_each_side_of_the_crossover(cuda, side):
+    """btd_solve launches the small-batch kernel up to SMALL_PER_SM scenarios
+    per SM and btd_kernel past it, counting one launch per call and the
+    small kernel's apart; either way x is the other kernel's bit for bit."""
+    B = SMALL_PER_SM * torch.cuda.get_device_properties(cuda).multi_processor_count + (side == "past")
+    small = side == "at"
+    assert picks_small(B, 41, 36) == small
+    D, L, b, _ = _system(B, 41, 36, 10, cuda)
+    launches, smalls = btd_solve.launches, btd_solve.small_launches
+    x = btd_solve(D, L, b)
+    assert (btd_solve.launches, btd_solve.small_launches) == (launches + 1, smalls + small)
+    other = _launch("btd_solve_f32" if small else "btd_small_solve_f32", D, L, b)
+    torch.cuda.synchronize()
+    assert torch.equal(x, other)
+
+
+def test_dispatch_where_the_factors_do_not_fit(cuda):
+    """At n = 36 the small kernel's factors fit a block's shared memory up
+    to K = 73; at K = 74 btd_solve takes btd_kernel."""
+    assert picks_small(1, 73, 36) and not picks_small(1, 74, 36)
+    D, L, b, _ = _system(1, 74, 36, 11, cuda)
+    smalls = btd_solve.small_launches
+    x = btd_solve(D, L, b)
+    torch.cuda.synchronize()
+    assert btd_solve.small_launches == smalls
+    torch.testing.assert_close(x, block_tridiag_solve(D, L, b), rtol=0, atol=ATOL)
+
+
+def test_small_kernel_launch_error_raises(cuda, monkeypatch):
+    """No fallback: a small-batch launch the card refuses (its factors do not
+    fit) raises, and no other kernel runs in its place."""
+    monkeypatch.setattr(btd, "picks_small", lambda B, K, n: True)
+    D, L, b, _ = _system(1, 74, 36, 12, cuda)
+    launches = btd_solve.launches
+    with pytest.raises(RuntimeError, match="small-batch kernel launch failed"):
+        btd_solve(D, L, b)
+    assert btd_solve.launches == launches
 
 
 def test_kernel_rejects_wide_blocks(cuda):
