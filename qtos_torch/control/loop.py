@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 
 import numpy as np
 import torch
@@ -36,6 +37,7 @@ from qtos_torch.sim.engine import (
 )
 from qtos_torch.sim.motor import MotorParams, pd_torque
 from qtos_torch.terrain.heightfield import Terrain
+from qtos_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -362,8 +364,9 @@ def playback(
     `n_valid` (default all rows) freezes the sim for ticks at index >=
     n_valid; see `_scan_ticks`.  On the card one launch of the tick kernel.
     Returns (final_state, TrackingMetrics)."""
-    final, traces = tick_scan(table, state0, terrain, params, n_valid)
-    return final, _metrics(traces, table.shape[-2] if n_valid is None else n_valid)
+    with annotate("qtos::playback", math.prod(table.shape[:-1])):
+        final, traces = tick_scan(table, state0, terrain, params, n_valid)
+        return final, _metrics(traces, table.shape[-2] if n_valid is None else n_valid)
 
 
 def stance_warmup(

@@ -62,6 +62,7 @@ from qtos_torch.solver.spec import (
 )
 from qtos_torch.terrain.heightfield import Terrain, height_at, traversability_map
 from qtos_torch.utils.containers import LimitedFIFOQueue, LimitedStack
+from qtos_torch.utils.profiling import annotate
 
 # Checkpoints number the simulator's leaves `sim_0`, `sim_1`, ... in this
 # order: the order in which `qtos_tpu` flattens its SimState, so the
@@ -240,38 +241,40 @@ def _plan_batch_core(rows, goals_r, goals_yaw, t0s, x0, drift3, dyaw, terrain,
 
     `rows` is not written to: every step below builds new tensors."""
     k = rows.shape[0]
-    feet_pre = rows[:, 7:19].reshape(k, 4, 3)
-    r_pre = rows[:, 1:4]
-    r = r_pre + drift3
-    yaw = rows[:, 6] + dyaw
-    feet = feet_pre + drift3
-    # rotate feet about the (shifted) CoM and the velocity by the yaw residual
-    ca, sa = torch.cos(dyaw), torch.sin(dyaw)
-    feet_xy = r[:, None, :2] + _rot_xy(feet[:, :, :2] - r[:, None, :2], ca, sa)
-    feet_z = feet[..., 2]
-    r_z = r[:, 2]
-    # Re-seat z on the terrain: the drift/yaw shift moves feet in xy but the
-    # rows carry z from the ORIGINAL xy — on banded terrain a 0.1-0.3 m shift
-    # strands a stance foot 2-7 cm off the surface, making the start state
-    # terrain-infeasible.  Shifting z by the local terrain delta preserves
-    # both stance seating and swing clearance; the CoM rides the same delta.
-    if terrain is not None:
-        h_pre = height_at(terrain, feet_pre[..., 0], feet_pre[..., 1])
-        h_post = height_at(terrain, feet_xy[..., 0], feet_xy[..., 1])
-        feet_z = feet_z + (h_post - h_pre)
-        hc_pre = height_at(terrain, r_pre[:, 0], r_pre[:, 1])
-        hc_post = height_at(terrain, r[:, 0], r[:, 1])
-        r_z = r_z + (hc_post - hc_pre)
-    feet = torch.cat([feet_xy, feet_z[..., None]], dim=-1)
-    v_rot = _rot_xy(rows[:, 19:21], ca, sa)
-    rows = torch.cat(
-        [rows[:, 0:1], r[:, :2], r_z[:, None], rows[:, 4:6], yaw[:, None],
-         feet.reshape(k, 12), v_rot, rows[:, 21:]], dim=-1)
-    dt = duration / (K - 1)
-    schedule = make_schedule(gait, K, dt, device=rows.device)
-    specs = spec_from_row(rows, goals_r, goals_yaw, None, K, duration, schedule)
+    with annotate("qtos::replan.start", k):
+        feet_pre = rows[:, 7:19].reshape(k, 4, 3)
+        r_pre = rows[:, 1:4]
+        r = r_pre + drift3
+        yaw = rows[:, 6] + dyaw
+        feet = feet_pre + drift3
+        # rotate feet about the (shifted) CoM and the velocity by the yaw residual
+        ca, sa = torch.cos(dyaw), torch.sin(dyaw)
+        feet_xy = r[:, None, :2] + _rot_xy(feet[:, :, :2] - r[:, None, :2], ca, sa)
+        feet_z = feet[..., 2]
+        r_z = r[:, 2]
+        # Re-seat z on the terrain: the drift/yaw shift moves feet in xy but the
+        # rows carry z from the ORIGINAL xy — on banded terrain a 0.1-0.3 m shift
+        # strands a stance foot 2-7 cm off the surface, making the start state
+        # terrain-infeasible.  Shifting z by the local terrain delta preserves
+        # both stance seating and swing clearance; the CoM rides the same delta.
+        if terrain is not None:
+            h_pre = height_at(terrain, feet_pre[..., 0], feet_pre[..., 1])
+            h_post = height_at(terrain, feet_xy[..., 0], feet_xy[..., 1])
+            feet_z = feet_z + (h_post - h_pre)
+            hc_pre = height_at(terrain, r_pre[:, 0], r_pre[:, 1])
+            hc_post = height_at(terrain, r[:, 0], r[:, 1])
+            r_z = r_z + (hc_post - hc_pre)
+        feet = torch.cat([feet_xy, feet_z[..., None]], dim=-1)
+        v_rot = _rot_xy(rows[:, 19:21], ca, sa)
+        rows = torch.cat(
+            [rows[:, 0:1], r[:, :2], r_z[:, None], rows[:, 4:6], yaw[:, None],
+             feet.reshape(k, 12), v_rot, rows[:, 21:]], dim=-1)
+        dt = duration / (K - 1)
+        schedule = make_schedule(gait, K, dt, device=rows.device)
+        specs = spec_from_row(rows, goals_r, goals_yaw, None, K, duration, schedule)
     res = _solve_pass(specs, terrain, scfg, x0)
-    tables, contacts = sample_trajectory(res.x, specs, hz=1000, t0=t0s)
+    with annotate("qtos::sample", k):
+        tables, contacts = sample_trajectory(res.x, specs, hz=1000, t0=t0s)
     return res, tables, contacts
 
 
@@ -294,19 +297,20 @@ def plan_windows_batch(rows, goals_r, goals_yaw, terrain: Terrain, cfg: RunnerCo
     Returns (SolveResult, tables (k, T, 37), contacts (k, T, 4)) — all
     tensors on that device; nothing here reads one back to the host.
     """
-    scfg = solver_cfg if solver_cfg is not None else cfg.solver
-    f32 = dict(dtype=rows.dtype, device=rows.device)
-    if t0s is None:
-        t0s = torch.zeros(rows.shape[0], **f32)
-    if drift3 is None:
-        drift3 = torch.zeros(3, **f32)
-    if dyaw is None:
-        dyaw = torch.zeros((), **f32)
-    return _plan_batch_core(
-        rows, goals_r, goals_yaw, t0s, x0, drift3, dyaw, terrain,
-        scfg=scfg.replace(rescue_iters=0), K=cfg.K,
-        duration=cfg.window_duration, gait=cfg.gait,
-    )
+    with annotate("qtos::replan", rows.shape[0]):
+        scfg = solver_cfg if solver_cfg is not None else cfg.solver
+        f32 = dict(dtype=rows.dtype, device=rows.device)
+        if t0s is None:
+            t0s = torch.zeros(rows.shape[0], **f32)
+        if drift3 is None:
+            drift3 = torch.zeros(3, **f32)
+        if dyaw is None:
+            dyaw = torch.zeros((), **f32)
+        return _plan_batch_core(
+            rows, goals_r, goals_yaw, t0s, x0, drift3, dyaw, terrain,
+            scfg=scfg.replace(rescue_iters=0), K=cfg.K,
+            duration=cfg.window_duration, gait=cfg.gait,
+        )
 
 
 def stance_table(row, n_rows: int, t0: float):

@@ -19,6 +19,7 @@ from qtos_torch.solver.assemble import assemble
 from qtos_torch.solver.spec import NV, ProblemSpec, SolverConfig, index_spec, map_tensors
 from qtos_torch.solver.transcription import initial_guess, knot_aux, max_violation, violations
 from qtos_torch.terrain.heightfield import Terrain, slope_terrain
+from qtos_torch.utils.profiling import annotate
 
 STATUS_CONVERGED = 0
 STATUS_MAX_ITERS = 1
@@ -45,58 +46,64 @@ def _solve_pass(specs: ProblemSpec, terrain: Terrain, cfg: SolverConfig,
                 x0: torch.Tensor | None = None) -> SolveResult:
     """`cfg.max_iters` delayed-gratification LM iterations, then the final
     selection by max violation."""
-    if x0 is None:
-        x0 = initial_guess(specs, terrain, cfg)
-    B, K, _ = x0.shape
-    dev, dt_ = x0.device, x0.dtype
-    aux = knot_aux(specs, terrain, cfg)
-    slope = slope_terrain(terrain, cfg.slope_probe_d)   # the slope grid, once per pass
+    B = specs.goal_r.shape[0]
+    with annotate("qtos::solve.pass", B):
+        with annotate("qtos::solve.presolve", B):
+            if x0 is None:
+                x0 = initial_guess(specs, terrain, cfg)
+            K = x0.shape[1]
+            dev, dt_ = x0.device, x0.dtype
+            aux = knot_aux(specs, terrain, cfg)
+            slope = slope_terrain(terrain, cfg.slope_probe_d)   # the slope grid, once per pass
 
-    # One residual/Jacobian evaluation per iteration: the candidate step is
-    # evaluated by the NEXT iteration's assembly; on rejection the solver
-    # reverts to the stored system of the last accepted point.
-    x, x_best = x0, x0
-    D_b = torch.zeros((B, K, NV, NV), dtype=dt_, device=dev)
-    L_b = torch.zeros((B, K - 1, NV, NV), dtype=dt_, device=dev)
-    g_b = torch.zeros((B, K, NV), dtype=dt_, device=dev)
-    merit_b = torch.full((B,), float("inf"), dtype=dt_, device=dev)
-    lm = torch.full((B,), cfg.lm_init, dtype=dt_, device=dev)
-    for _ in range(cfg.max_iters):
-        D, L, g, merit = assemble(x, specs, terrain, cfg, aux, slope)
-        accept = merit < merit_b                                       # (B,)
-        a3, a4 = accept[:, None, None], accept[:, None, None, None]
-        x_best = torch.where(a3, x, x_best)
-        D_b = torch.where(a4, D, D_b)
-        L_b = torch.where(a4, L, L_b)
-        g_b = torch.where(a3, g, g_b)
-        merit_b = torch.where(accept, merit, merit_b)
-        lm = torch.clamp(torch.where(accept, lm * cfg.lm_down, lm * cfg.lm_up),
-                         cfg.lm_min, cfg.lm_max)
-        damp = lm[:, None, None] * torch.diagonal(D_b, dim1=-2, dim2=-1) + 1e-8
-        dx = btd_solve(D_b + torch.diag_embed(damp), L_b, -g_b)
-        x = x_best + dx
+            # One residual/Jacobian evaluation per iteration: the candidate step is
+            # evaluated by the NEXT iteration's assembly; on rejection the solver
+            # reverts to the stored system of the last accepted point.
+            x, x_best = x0, x0
+            D_b = torch.zeros((B, K, NV, NV), dtype=dt_, device=dev)
+            L_b = torch.zeros((B, K - 1, NV, NV), dtype=dt_, device=dev)
+            g_b = torch.zeros((B, K, NV), dtype=dt_, device=dev)
+            merit_b = torch.full((B,), float("inf"), dtype=dt_, device=dev)
+            lm = torch.full((B,), cfg.lm_init, dtype=dt_, device=dev)
+        for _ in range(cfg.max_iters):
+            with annotate("qtos::lm.iter", B) as span:
+                D, L, g, merit = assemble(x, specs, terrain, cfg, aux, slope)
+                accept = merit < merit_b                                       # (B,)
+                span.set(accepted=accept)
+                a3, a4 = accept[:, None, None], accept[:, None, None, None]
+                x_best = torch.where(a3, x, x_best)
+                D_b = torch.where(a4, D, D_b)
+                L_b = torch.where(a4, L, L_b)
+                g_b = torch.where(a3, g, g_b)
+                merit_b = torch.where(accept, merit, merit_b)
+                lm = torch.clamp(torch.where(accept, lm * cfg.lm_down, lm * cfg.lm_up),
+                                 cfg.lm_min, cfg.lm_max)
+                damp = lm[:, None, None] * torch.diagonal(D_b, dim1=-2, dim2=-1) + 1e-8
+                dx = btd_solve(D_b + torch.diag_embed(damp), L_b, -g_b)
+                x = x_best + dx
 
-    # Final selection between the best ACCEPTED point and the last trial
-    # point is by max constraint VIOLATION, not merit: merit trades the
-    # constraint families against goal/regularization terms, so a
-    # lower-merit iterate can carry a higher dynamics defect.
-    viol_b = violations(x_best, specs, terrain, cfg)
-    viol_t = violations(x, specs, terrain, cfg)
-    mv_b, mv_t = max_violation(viol_b), max_violation(viol_t)
-    take_t = mv_t < mv_b
-    x_out = torch.where(take_t[:, None, None], x, x_best)
-    viol = {k: torch.where(take_t, viol_t[k], viol_b[k]) for k in viol_b}
-    max_v = torch.minimum(mv_b, mv_t)
-    status = torch.where(max_v < cfg.tol, STATUS_CONVERGED, STATUS_MAX_ITERS).to(torch.int32)
-    return SolveResult(
-        x=x_out,
-        status=status,
-        # diagnostics only: the best ACCEPTED merit, as qtos_tpu's lanes path
-        merit=merit_b,
-        max_violation=max_v,
-        viol=viol,
-        iters=torch.full((B,), cfg.max_iters, dtype=torch.int32, device=dev),
-    )
+        # Final selection between the best ACCEPTED point and the last trial
+        # point is by max constraint VIOLATION, not merit: merit trades the
+        # constraint families against goal/regularization terms, so a
+        # lower-merit iterate can carry a higher dynamics defect.
+        with annotate("qtos::solve.select", B):
+            viol_b = violations(x_best, specs, terrain, cfg)
+            viol_t = violations(x, specs, terrain, cfg)
+            mv_b, mv_t = max_violation(viol_b), max_violation(viol_t)
+            take_t = mv_t < mv_b
+            x_out = torch.where(take_t[:, None, None], x, x_best)
+            viol = {k: torch.where(take_t, viol_t[k], viol_b[k]) for k in viol_b}
+            max_v = torch.minimum(mv_b, mv_t)
+            status = torch.where(max_v < cfg.tol, STATUS_CONVERGED, STATUS_MAX_ITERS).to(torch.int32)
+            return SolveResult(
+                x=x_out,
+                status=status,
+                # diagnostics only: the best ACCEPTED merit, as qtos_tpu's lanes path
+                merit=merit_b,
+                max_violation=max_v,
+                viol=viol,
+                iters=torch.full((B,), cfg.max_iters, dtype=torch.int32, device=dev),
+            )
 
 
 def solve_batch(specs: ProblemSpec, terrain: Terrain,
@@ -115,32 +122,33 @@ def solve_batch(specs: ProblemSpec, terrain: Terrain,
     the same result; PyTorch runs eagerly and needs no shape buckets.
     """
     _check_batch(specs, terrain)
-    pass1_cfg = cfg.replace(rescue_iters=0) if cfg.rescue_iters > 0 else cfg
-    res = _solve_pass(specs, terrain, pass1_cfg)
-    if cfg.rescue_iters <= 0:
-        return res
-    bad = torch.nonzero(res.status != STATUS_CONVERGED).flatten()
-    if bad.numel() == 0:
-        return res
+    with annotate("qtos::solve_batch", specs.goal_r.shape[0]):
+        pass1_cfg = cfg.replace(rescue_iters=0) if cfg.rescue_iters > 0 else cfg
+        res = _solve_pass(specs, terrain, pass1_cfg)
+        if cfg.rescue_iters <= 0:
+            return res
+        bad = torch.nonzero(res.status != STATUS_CONVERGED).flatten()
+        if bad.numel() == 0:
+            return res
 
-    cfg2 = cfg.replace(max_iters=cfg.rescue_iters, rescue_iters=0)
-    res2 = _solve_pass(index_spec(specs, bad), terrain, cfg2, res.x[bad])
-    improved = res2.max_violation < res.max_violation[bad]
-    upd = bad[improved]
+        cfg2 = cfg.replace(max_iters=cfg.rescue_iters, rescue_iters=0)
+        res2 = _solve_pass(index_spec(specs, bad), terrain, cfg2, res.x[bad])
+        improved = res2.max_violation < res.max_violation[bad]
+        upd = bad[improved]
 
-    def merge(old, new):
-        out = old.clone()
-        out[upd] = new[improved]
-        return out
+        def merge(old, new):
+            out = old.clone()
+            out[upd] = new[improved]
+            return out
 
-    return SolveResult(
-        x=merge(res.x, res2.x),
-        status=merge(res.status, res2.status),
-        merit=merge(res.merit, res2.merit),
-        max_violation=merge(res.max_violation, res2.max_violation),
-        viol={k: merge(res.viol[k], res2.viol[k]) for k in res.viol},
-        iters=merge(res.iters, res.iters[bad] + res2.iters),
-    )
+        return SolveResult(
+            x=merge(res.x, res2.x),
+            status=merge(res.status, res2.status),
+            merit=merge(res.merit, res2.merit),
+            max_violation=merge(res.max_violation, res2.max_violation),
+            viol={k: merge(res.viol[k], res2.viol[k]) for k in res.viol},
+            iters=merge(res.iters, res.iters[bad] + res2.iters),
+        )
 
 
 def solve(spec: ProblemSpec, terrain: Terrain, cfg: SolverConfig = SolverConfig()) -> SolveResult:

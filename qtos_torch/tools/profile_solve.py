@@ -59,7 +59,10 @@ def _synced(dev) -> float:
     return time.perf_counter()
 
 
-CALL, ASSEMBLE = "qtos::solve_batch", "qtos::assemble"
+# the program's root span of a `solve_batch` call, and this tool's range
+# over each `assemble` call
+SPAN_PREFIX = "qtos::"
+CALL, ASSEMBLE = SPAN_PREFIX + "solve_batch", SPAN_PREFIX + "assemble"
 
 
 @contextlib.contextmanager
@@ -93,12 +96,12 @@ def _busy_us(intervals) -> float:
 
 def _tally(events, seen: dict) -> dict:
     """The profiled call's device kernels and copies (without the device-side
-    copies of its own `record_function` ranges, which the trace lists as
-    device events too), its span in the trace, the union of its device
-    intervals and the device time of the kernels launched inside
-    `assemble` (all us)."""
+    copies of the `record_function` ranges, the program's `qtos::` spans and
+    this tool's own, which the trace lists as device events too), its span
+    in the trace, the union of its device intervals and the device time of
+    the kernels launched inside `assemble` (all us)."""
     cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
-    kernels = [e for e in events if e.device_type == cuda and e.name not in (CALL, ASSEMBLE)]
+    kernels = [e for e in events if e.device_type == cuda and not e.name.startswith(SPAN_PREFIX)]
     call = next(e for e in events if e.name == CALL and e.device_type == cpu)
     start = call.time_range.start
     end = max([call.time_range.end] + [e.time_range.end for e in kernels])
@@ -110,11 +113,11 @@ def _tally(events, seen: dict) -> dict:
 
 
 def _profiled(fn) -> dict:
-    """`_tally` of one call of `fn` under the profiler."""
+    """`_tally` of one `solve_batch` call, `fn`, under the profiler (the
+    call's span is the program's own root span)."""
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with _marked_assembly() as seen, torch.profiler.profile(activities=activities) as prof:
-        with torch.profiler.record_function(CALL):
-            fn()
+        fn()
         torch.cuda.synchronize()
     return _tally(prof.events(), seen)
 

@@ -143,7 +143,8 @@ def test_profile_solve_tallies_kernels_without_its_own_ranges():
 
     events = [ev(profile_solve.CALL, cpu, 0.0, 10.0), ev(profile_solve.CALL, cuda, 2.0, 20.0),
               ev(profile_solve.ASSEMBLE, cpu, 1.0, 3.0, total=5.0), ev(profile_solve.ASSEMBLE, cuda, 2.0, 9.0),
-              ev("gemm", cuda, 2.0, 7.0), ev("btd_kernel", cuda, 8.0, 9.0), ev("copy", cuda, 15.0, 20.0)]
+              ev("gemm", cuda, 2.0, 7.0), ev("btd_kernel", cuda, 8.0, 9.0), ev("copy", cuda, 15.0, 20.0),
+              ev("qtos::lm.iter", cuda, 2.0, 9.5)]
     t = profile_solve._tally(events, {"calls": 1, "rows": 4})
     assert [e.name for e in t["kernels"]] == ["gemm", "btd_kernel", "copy"]
     assert (t["span_us"], t["busy_us"], t["assembly_us"]) == (20.0, 11.0, 5.0)
