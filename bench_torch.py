@@ -37,6 +37,7 @@ import qtos_torch  # noqa: F401  (sets TF32 off: bench.py's "highest" matmul pre
 from qtos_torch.device import resolve_device
 from qtos_torch.ops.assemble import assemble_kernel
 from qtos_torch.ops.btd import btd_solve, work
+from qtos_torch.ops.lm_restore import restore_rejected
 from qtos_torch.solver import SolverConfig, default_spec, solve_batch
 from qtos_torch.solver.spec import NV
 from qtos_torch.terrain import make_terrain
@@ -72,9 +73,9 @@ def time_solves(specs, terrain, cfg: SolverConfig, repeats: int = REPEATS) -> di
     the BTD solve's, those of its small-batch kernel apart) and the last
     call's result."""
     int((solve_batch(specs, terrain, cfg).status == 0).sum())
-    seconds, converged, btd, small, asm = [], [], [], [], []
+    seconds, converged, btd, small, asm, restore = [], [], [], [], [], []
     for _ in range(repeats):
-        btd_solve.launches = btd_solve.small_launches = assemble_kernel.launches = 0
+        btd_solve.launches = btd_solve.small_launches = assemble_kernel.launches = restore_rejected.launches = 0
         t0 = time.perf_counter()
         res = solve_batch(specs, terrain, cfg)
         converged.append(int((res.status == 0).sum()))
@@ -82,8 +83,10 @@ def time_solves(specs, terrain, cfg: SolverConfig, repeats: int = REPEATS) -> di
         btd.append(btd_solve.launches)
         small.append(btd_solve.small_launches)
         asm.append(assemble_kernel.launches)
+        restore.append(restore_rejected.launches)
     return dict(B=int(res.status.shape[0]), seconds=seconds, converged=min(converged),
-                btd_launches=btd, small_btd_launches=small, assemble_launches=asm, result=res)
+                btd_launches=btd, small_btd_launches=small, assemble_launches=asm, restore_launches=restore,
+                result=res)
 
 
 def pass1_flops(B: int, cfg: SolverConfig) -> int:
@@ -114,8 +117,8 @@ def describe(t: dict, flops: int, on_card: bool) -> str:
     dt = statistics.median(s)
     line = (f"# B={B}: {dt:.3f}s -> {B / dt:.1f} solves/s ({t['converged']}/{B} converged); {len(s)} calls "
             f"min / median / max {min(s):.4f} / {dt:.4f} / {max(s):.4f} s; launches per call btd "
-            f"{t['btd_launches']}, assembly {t['assemble_launches']}, of the btd the small-batch kernel's "
-            f"{t['small_btd_launches']}")
+            f"{t['btd_launches']}, assembly {t['assemble_launches']}, LM restore {t['restore_launches']}, of the "
+            f"btd the small-batch kernel's {t['small_btd_launches']}")
     fps = flops / dt
     line += f" | {flops / 1e9:.1f} GFLOP pass-1 -> {fps / 1e12:.3f} TFLOP/s"
     if on_card:

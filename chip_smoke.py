@@ -11,9 +11,9 @@ results.
 
 Phases (any failure ends the run with a non-zero exit and no result line):
   1. the card's name and power limit (nvidia-smi);
-  2. build csrc/btd.cu, csrc/tick.cu, csrc/assemble.cu and the tick's
-     latency probe (tools/op_cycles.cu) with nvcc for sm_90a, one nvcc each,
-     all at once (ptxas report: registers, spills);
+  2. build csrc/btd.cu, csrc/tick.cu, csrc/assemble.cu, csrc/lm_restore.cu
+     and the tick's latency probe (tools/op_cycles.cu) with nvcc for sm_90a,
+     one nvcc each, all at once (ptxas report: registers, spills);
   3. BTD kernel vs plain version on random SPD systems (the shapes of the
      tests and those of the driven paths: B=1, K=33; B=20, K=25; B=1, B=4,
      B=64, B=1024 and B=8192, K=41; B=3 and B=512, K=13; n=36) and on a
@@ -41,11 +41,17 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (8192, 41), its design's floor
      (tools/assemble_floor.py), registers, spills, shared memory and blocks
      per SM, beside the first design's recorded numbers;
+  3c. the LM restore kernel vs its plain version and torch.where
+     (tools/check_restore.py) at (8192, 41), (4, 41) and (1, 41), every
+     step accepted, every one rejected, a mix, and the mix with no kept
+     system (zero fill), bit for bit; kernel, plain, torch.where and bound
+     ms, and the host time of one call at B=4;
   4. the main path: solve_batch on the bench distribution (plane x3, K=41,
      goals 0.3..0.8, max_iters=3, rescue_iters=12) at B=1024 and B=8192,
      timed by bench_torch.time_solves (a warm-up, then 5 calls: min / median
-     / max), with both solver kernels' launch counters in each call (one
-     launch of each per LM iteration), convergence and the 1 kHz table;
+     / max), with the solver kernels' launch counters in each call (one
+     launch each of the BTD, assembly and LM restore kernels per LM
+     iteration), convergence and the 1 kHz table;
   5. the port on CUDA against the port on CPU at B=64, K=41;
   6. physics playback, through the tick kernel: (a) the library quick start
      (plan, solve, sample, 500 warm-up ticks, 1 kHz playback) on the card;
@@ -155,14 +161,22 @@ def _asm_launches() -> int:
     return assemble_kernel.launches
 
 
+def _restore_launches() -> int:
+    """The LM restore kernel's launches since its count was last set to 0."""
+    from qtos_torch.ops.lm_restore import restore_rejected
+
+    return restore_rejected.launches
+
+
 def _zero_solver_counts():
-    """Sets the BTD and assembly kernels' counts to 0: one LM iteration
-    launches each once (the BTD solve's btd_kernel or its small-batch
-    kernel)."""
+    """Sets the BTD, assembly and LM restore kernels' counts to 0: one LM
+    iteration launches each once (the BTD solve's btd_kernel or its
+    small-batch kernel)."""
     from qtos_torch.ops.assemble import assemble_kernel
     from qtos_torch.ops.btd import btd_solve
+    from qtos_torch.ops.lm_restore import restore_rejected
 
-    btd_solve.launches = btd_solve.small_launches = assemble_kernel.launches = 0
+    btd_solve.launches = btd_solve.small_launches = assemble_kernel.launches = restore_rejected.launches = 0
 
 
 @contextlib.contextmanager
@@ -287,9 +301,10 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
     _zero_solver_counts()
     res = solve(spec, terr2, SolverConfig(max_iters=30))
     launches, iters, asm_launches = btd_solve.launches, int(res.iters.max()), _asm_launches()
-    if dev.type == "cuda" and not launches == asm_launches >= iters:      # main() always passes the card
-        fail(f"phase 6a: the quick start's solve launched the BTD and assembly kernels {launches} and "
-             f"{asm_launches} times in {iters} iterations")
+    restore_launches = _restore_launches()
+    if dev.type == "cuda" and not launches == asm_launches == restore_launches >= iters:  # main() passes the card
+        fail(f"phase 6a: the quick start's solve launched the BTD, assembly and LM restore kernels {launches}, "
+             f"{asm_launches} and {restore_launches} times in {iters} iterations")
     status = int(res.status)
     table, _ = sample_trajectory(res.x, spec)
     final, m, warm_s, play_s, _ = episode(table, terr2)
@@ -298,8 +313,8 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
     plan_end = table[-1, 1:4].cpu()
     pos = final.pos.cpu()
     err_s = float(m.avg_com_err_per_s)
-    line = (f"# phase 6a quick start (K=33, {T1} rows): status {status}, btd and assembly launches {launches} and "
-            f"{asm_launches} in "
+    line = (f"# phase 6a quick start (K=33, {T1} rows): status {status}, btd, assembly and LM restore launches "
+            f"{launches}, {asm_launches} and {restore_launches} in "
             f"{iters} iterations, avg_com_err_per_s {err_s:.2f}, "
             f"final pos ({pos[0]:.4f}, {pos[1]:.4f}, {pos[2]:.4f}) vs plan end "
             f"({plan_end[0]:.4f}, {plan_end[1]:.4f}, {plan_end[2]:.4f}); warm-up {warmup} ticks "
@@ -357,7 +372,8 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
     if not (dpos <= 1e-4 and dq <= 5e-4 and rel <= 0.005):
         fail(line)
     log(line + f" ({time.time() - t0:.1f} s)")
-    return {"tables": tables, "s0": s0_b, "terrain": terrain, "launches": counts_b}
+    return {"tables": tables, "s0": s0_b, "terrain": terrain, "launches": counts_b,
+            "restore_quick_start": restore_launches}
 
 
 # Phase 6d's gates: card against CPU over exp_2's first riser.  On an H100 the
@@ -652,6 +668,7 @@ def phase_planner(dev, card) -> None:
     fmap = feasibility_map(terrain, cfg=cfg, K=K)
     probe_s = _synced(dev) - t1
     launches, asm_launches, small = btd_solve.launches, _asm_launches(), btd_solve.small_launches
+    restore_launches = _restore_launches()
 
     # The probe's windows once more, for the counts the map does not carry.
     _, specs = probe_specs(terrain, K=K)
@@ -668,10 +685,11 @@ def phase_planner(dev, card) -> None:
     line = (f"# phase 7 feasibility probe {'+'.join(tiles)} (K={K}, max_iters={max_iters}): {n_pairs} pairs, "
             f"{n_failed} failed the obstacle gate, {n_unconverged} unconverged at tol {cfg.tol}, "
             f"btd launches {launches} (of them the small-batch kernel's {small}), assembly launches "
-            f"{asm_launches}, {probe_s:.3f} s on {card}; {int(blocked.sum())}/{blocked.size} cells blocked")
-    if dev.type == "cuda" and not launches == asm_launches >= max_iters:
-        fail(line + f": the probe launched the kernels {launches} and {asm_launches} times, not equal and "
-                    f">= max_iters {max_iters}")
+            f"{asm_launches}, LM restore launches {restore_launches}, {probe_s:.3f} s on {card}; "
+            f"{int(blocked.sum())}/{blocked.size} cells blocked")
+    if dev.type == "cuda" and not launches == asm_launches == restore_launches >= max_iters:
+        fail(line + f": the probe launched the kernels {launches}, {asm_launches} and {restore_launches} times, "
+                    f"not equal and >= max_iters {max_iters}")
     if dev.type == "cuda" and small != (launches if picks_small(n_pairs, K, 36) else 0):
         fail(line + ": the BTD solves did not go to the kernel that btd_pick_small picks at this batch")
     if not blocked[grid > 0.1].all():
@@ -750,15 +768,16 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
             times.append(_synced(dev) - t1)
     replan_s = statistics.median(times)
     replan_launches, replan_asm, replan_small = btd_solve.launches, _asm_launches(), btd_solve.small_launches
+    replan_restore = _restore_launches()
     n_conv = int((res.status == 0).sum())
     line = (f"# phase 8a replan (plan_windows_batch, B={k}, K={cfg.K}, max_iters={cfg.solver.max_iters}): "
             f"{replan_s * 1e3:.1f} ms on {card} (median of {len(times)} calls, {min(times) * 1e3:.1f} to "
             f"{max(times) * 1e3:.1f}), btd launches {replan_launches} (of them the small-batch "
-            f"kernel's {replan_small}), assembly launches {replan_asm}, "
+            f"kernel's {replan_small}), assembly launches {replan_asm}, LM restore launches {replan_restore}, "
             f"{n_conv}/{k} converged, "
             f"tables {tuple(tables.shape)}; the kernel against its plain version at "
             f"({k}, {cfg.K}, 36) is phase 3's row of that shape")
-    if on_card and not replan_launches == replan_asm == replan_small == cfg.solver.max_iters:
+    if on_card and not replan_launches == replan_asm == replan_restore == replan_small == cfg.solver.max_iters:
         fail(line + f": expected {cfg.solver.max_iters} launches of each, the BTD solve's all of the small-batch "
                     f"kernel")
     with _warp_kernel_only():
@@ -779,6 +798,7 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     rep = runner.run(verbose=True)
     wall = _synced(dev) - t1
     launches, runner_asm, runner_small = btd_solve.launches, _asm_launches(), btd_solve.small_launches
+    runner_restore = _restore_launches()
     tick_launches = _tick_counts()
     chunks = len(runner._st["com_errs"])
     want = cfg.solver.max_iters * rep.windows + cfg.escalate_iters * runner.escalations
@@ -792,7 +812,7 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
             f"{rep.final_pos[2]:.4f}), avg_com_err_per_s {rep.avg_com_err_per_s:.2f}, "
             f"btd launches {launches} (= {cfg.solver.max_iters} x {rep.windows} solves"
             f"{' + escalations' if runner.escalations else ''}; of them the small-batch kernel's {runner_small}), "
-            f"assembly launches {runner_asm}, "
+            f"assembly launches {runner_asm}, LM restore launches {runner_restore}, "
             f"tick kernel launches (playback, hold) "
             f"{tick_launches} for {chunks} executed chunks and 1 warm-up; wall {wall:.2f} s on {card} = "
             f"{wall / loops:.2f} s per window over {loops} windows of the loop, of which replans "
@@ -808,7 +828,8 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     if goal_xy is None:
         ok = ok and rep.final_pos[0] > 1.9
     if on_card:
-        ok = ok and launches == want == runner_asm == runner_small and tick_launches == (chunks, 1)
+        ok = (ok and launches == want == runner_asm == runner_restore == runner_small
+              and tick_launches == (chunks, 1))
     if not ok:
         fail(line)
     log(line)
@@ -860,7 +881,7 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     log(f"# phase 8 done in {time.time() - t0:.1f} s")
     return {"replan": replan_launches, "runner": launches, "tick_runner": tick_launches,
             "asm_replan": replan_asm, "asm_runner": runner_asm, "small_replan": replan_small,
-            "small_runner": runner_small}
+            "small_runner": runner_small, "restore_replan": replan_restore, "restore_runner": runner_restore}
 
 
 def phase_sharded(dev, card, B=1024, two_rank_batches=(5, 1023)) -> int:
@@ -892,7 +913,7 @@ def phase_sharded(dev, card, B=1024, two_rank_batches=(5, 1023)) -> int:
         backend = dist.get_backend()
         _zero_solver_counts()
         sharded = solve_batch_sharded(specs, terrain, cfg, mesh)
-        launches, asm_launches = btd_solve.launches, _asm_launches()
+        launches, asm_launches, restore_launches = btd_solve.launches, _asm_launches(), _restore_launches()
         x_loc, st_loc, st_all = solve_batch_collective(specs, terrain, cfg, mesh)
     finally:
         dist.destroy_process_group()
@@ -901,9 +922,9 @@ def phase_sharded(dev, card, B=1024, two_rank_batches=(5, 1023)) -> int:
     line = (f"# phase 9 solve_batch_sharded ({backend}, world size {mesh.world}, B={B}, K={K}) on {card}: "
             f"x equal to solve_batch's bit for bit {same_x}, statuses {same_st}; gathered statuses equal the "
             f"local ones {gathered}; {int((sharded.status == 0).sum())}/{B} converged; btd launches {launches}, "
-            f"assembly launches {asm_launches}")
+            f"assembly launches {asm_launches}, LM restore launches {restore_launches}")
     if not (backend == ("nccl" if on_card else "gloo") and same_x and same_st and gathered
-            and ((launches == asm_launches >= cfg.max_iters) or not on_card)):
+            and ((launches == asm_launches == restore_launches >= cfg.max_iters) or not on_card)):
         fail(line)
     log(line)
     if not on_card or torch.cuda.device_count() >= 2:
@@ -917,7 +938,7 @@ def phase_sharded(dev, card, B=1024, two_rank_batches=(5, 1023)) -> int:
     else:
         log("# phase 9 two ranks: skipped, fewer than two cards")
     log(f"# phase 9 done in {time.time() - t0:.1f} s")
-    return {"btd": launches, "assemble": asm_launches}
+    return {"btd": launches, "assemble": asm_launches, "restore": restore_launches}
 
 
 # Card vs CPU on the TOWR-window entry point: both solve the same float32 NLP
@@ -954,7 +975,7 @@ def phase_towr(dev, card, golden_table) -> dict:
             fig, res, spec = towr.measure(golden=golden, device=d)
             t2 = _synced(dev)
             out[name] = dict(fig=fig, ms=(t2 - t1) * 1e3, iters=int(res.iters), btd=btd_solve.launches,
-                             small=btd_solve.small_launches, asm=_asm_launches(),
+                             small=btd_solve.small_launches, asm=_asm_launches(), restore=_restore_launches(),
                              double_support=int((spec.schedule.contact.sum(-1) == 4).sum()))
     if on_card:
         with tempfile.TemporaryDirectory() as tmp, _warp_kernel_only():
@@ -967,8 +988,8 @@ def phase_towr(dev, card, golden_table) -> dict:
             f"support from the force profile, B=1) on {card}: " + "; ".join(
                 f"{name}: status {r['fig']['status']}, max_violation {r['fig']['max_violation']:.3e}, com_rms "
                 f"{r['fig']['com_rms']:.4e}, end_dev {r['fig']['end_dev']:.4e}, feet_rms {r['fig']['feet_rms']:.4e} m, "
-                f"{r['iters']} LM iterations, btd and assembly launches {r['btd']} and {r['asm']} (the small-batch "
-                f"kernel's {r['small']}), "
+                f"{r['iters']} LM iterations, btd, assembly and LM restore launches {r['btd']}, {r['asm']} and "
+                f"{r['restore']} (the small-batch kernel's {r['small']}), "
                 f"{r['ms']:.1f} ms per measure" for name, r in out.items())
             + f"; card vs CPU com_rms {gaps['com_rms']:.2e}, end_dev {gaps['end_dev']:.2e} m (gate {TOWR_GATE_M})"
             + (f"; the card's figures equal those by btd_kernel bit for bit: {card_run['fig'] == fig_w}"
@@ -976,17 +997,33 @@ def phase_towr(dev, card, golden_table) -> dict:
     ok = (all(r["fig"]["status"] == 0 and r["fig"]["max_violation"] < 3e-3
               and all(math.isfinite(v) for v in r["fig"].values()) for r in out.values())
           and all(g <= TOWR_GATE_M for g in gaps.values())
-          and cpu_run["btd"] == cpu_run["asm"] == 0
-          and (not on_card or (card_run["btd"] == card_run["asm"] == card_run["small"] == card_run["iters"] == 120
+          and cpu_run["btd"] == cpu_run["asm"] == cpu_run["restore"] == 0
+          and (not on_card or (card_run["btd"] == card_run["asm"] == card_run["restore"] == card_run["small"]
+                               == card_run["iters"] == 120
                                and card_run["fig"] == fig_w)))
     if not ok:
         fail(line)
     log(line + f" (phase 10 done in {time.time() - t0:.1f} s)")
     return {"btd": card_run["btd"], "assemble": card_run["asm"], "small": card_run["small"],
+            "restore": card_run["restore"],
             "figures": card_run["fig"], "ms": card_run["ms"]}
 
 
 BENCH_KEYS = ["metric", "value", "unit", "vs_baseline"]          # bench.py's last line
+
+
+def bench_line_ok(line: str) -> bool:
+    """Phase 11's gate on one `# B=` line of `bench_torch.py`
+    (`bench_torch.describe`): every scenario converged, and in every timed
+    call the BTD, assembly and LM restore kernels launched equally often, at
+    least 3 times, none of it on the small-batch BTD kernel."""
+    conv = re.search(r"\((\d+)/(\d+) converged\)", line)
+    counts = re.search(r"btd \[([\d, ]+)\], assembly \[([\d, ]+)\], LM restore \[([\d, ]+)\], of the btd the "
+                       r"small-batch kernel's \[([\d, ]+)\]", line)
+    if not (conv and counts) or conv.group(1) != conv.group(2):
+        return False
+    btd, asm, restore, small = ([int(v) for v in g.split(",")] for g in counts.groups())
+    return btd == asm == restore and min(btd) >= 3 and max(small) == 0
 
 
 def phase_bench(card) -> str:
@@ -1010,18 +1047,9 @@ def phase_bench(card) -> str:
     except (IndexError, ValueError):
         out = None
 
-    def good(line):
-        conv = re.search(r"\((\d+)/(\d+) converged\)", line)
-        counts = re.search(r"btd \[([\d, ]+)\], assembly \[([\d, ]+)\], of the btd the small-batch kernel's "
-                           r"\[([\d, ]+)\]", line)
-        if not (conv and counts) or conv.group(1) != conv.group(2):
-            return False
-        btd, asm, small = ([int(v) for v in g.split(",")] for g in counts.groups())
-        return btd == asm and min(btd) >= 3 and max(small) == 0
-
     ok = (child.returncode == 0 and isinstance(out, dict) and list(out) == BENCH_KEYS
           and out["metric"] == "gait_nlp_solves_per_s" and out["value"] > 0
-          and len(sizes) == 2 and all(good(line) for line in sizes))
+          and len(sizes) == 2 and all(bench_line_ok(line) for line in sizes))
     if not ok:
         fail(f"phase 11: bench_torch.py exited {child.returncode} (gates: exit 0, two sizes, every scenario "
              f"converged, one launch of each kernel per LM iteration, bench.py's keys):\n{child.stdout[-3000:]}\n"
@@ -1041,6 +1069,7 @@ def main() -> None:
     import qtos_torch  # noqa: F401  (sets TF32 off)
     from qtos_torch.ops import assemble as asm_mod
     from qtos_torch.ops import btd as btd_mod
+    from qtos_torch.ops import lm_restore as restore_mod
     from qtos_torch.ops import tick as tick_mod
     from qtos_torch.ops.btd import btd_solve
     from qtos_torch.ops.tridiag import block_tridiag_matvec, block_tridiag_solve
@@ -1050,7 +1079,7 @@ def main() -> None:
     from qtos_torch.solver.transcription import initial_guess, knot_aux
     from qtos_torch.terrain import make_terrain
     from qtos_torch.terrain.heightfield import slope_terrain
-    from qtos_torch.tools import btd_floor, check_assemble, profile_solve, tick_floor
+    from qtos_torch.tools import btd_floor, check_assemble, check_restore, profile_solve, tick_floor
 
     dev = torch.device("cuda")
 
@@ -1071,9 +1100,9 @@ def main() -> None:
     # One nvcc for each source, all at once; each prints its ptxas report.
     t0 = time.time()
     report = io.StringIO()
-    with contextlib.redirect_stdout(report), concurrent.futures.ThreadPoolExecutor(4) as pool:
+    with contextlib.redirect_stdout(report), concurrent.futures.ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(fn, verbose=True)
-                  for fn in (btd_mod.build, tick_mod.build, asm_mod.build, tick_floor.build_probe)]
+                  for fn in (btd_mod.build, tick_mod.build, asm_mod.build, tick_floor.build_probe, restore_mod.build)]
         paths = [b.result() for b in builds]
     report = report.getvalue()
     log(report.rstrip())
@@ -1405,9 +1434,39 @@ def main() -> None:
                    bound_ms_b1=timed[1]["bound_ms"], floor_ms_b1=timed[1]["floor_ms"], smem_bytes=occ["smem_bytes"],
                    blocks_per_sm=occ["blocks_per_sm"])
 
+    # ---- 3c. LM restore kernel vs plain -----------------------------------
+    # The shapes of the sweep, the replan and the TOWR window, every step
+    # accepted, every one rejected, a mix, and the mix with no kept system
+    # (zero fill); held to the plain version and torch.where bit for bit.
+    t0 = time.time()
+    restore_rows, restore_host = check_restore.check_all(dev)
+    for r in restore_rows:
+        line = f"# phase 3c {check_restore.describe(r)} on {card}"
+        if not r["bit_for_bit"]:
+            fail(line + " (gate: the kernel equals its plain version and torch.where bit for bit)")
+        log(line)
+    restore_regs, restore_spills = registers("lm_restore_kernel")
+    log(f"# phase 3c lm_restore_kernel on {card}: {restore_regs} registers, {restore_spills} B spill stores; host us "
+        f"per call at B=4: the wrapper {restore_host['wrapper_us']:.2f}, the three torch.where calls it replaced "
+        f"{restore_host['where_us']:.2f} (phase 3c done in {time.time() - t0:.1f} s)")
+    rr = {(r["B"], r["case"]): r for r in restore_rows}
+    restore_row = dict(
+        ms=rr[8192, "accepted"]["kernel_ms"], plain_ms=rr[8192, "accepted"]["plain_ms"],
+        bound_ms=rr[8192, "accepted"]["bound_ms"], where_ms=rr[8192, "accepted"]["where_ms"],
+        ms_rejected=rr[8192, "rejected"]["kernel_ms"], plain_ms_rejected=rr[8192, "rejected"]["plain_ms"],
+        bound_ms_rejected=rr[8192, "rejected"]["bound_ms"], where_ms_rejected=rr[8192, "rejected"]["where_ms"],
+        ms_b4=rr[4, "mixed"]["kernel_ms"], plain_ms_b4=rr[4, "mixed"]["plain_ms"],
+        bound_ms_b4=rr[4, "mixed"]["bound_ms"], where_ms_b4=rr[4, "mixed"]["where_ms"],
+        rejected_b4=rr[4, "mixed"]["rejected"],
+        ms_b1=rr[1, "rejected"]["kernel_ms"], plain_ms_b1=rr[1, "rejected"]["plain_ms"],
+        bound_ms_b1=rr[1, "rejected"]["bound_ms"], where_ms_b1=rr[1, "rejected"]["where_ms"],
+        host_us_b4=restore_host["wrapper_us"], where_host_us_b4=restore_host["where_us"],
+        registers=restore_regs, spill_stores_bytes=restore_spills)
+    torch.cuda.empty_cache()
+
     # ---- 4. main path ----------------------------------------------------
     t0 = time.time()
-    main_launches = main_asm_launches = None
+    main_launches = main_asm_launches = main_restore_launches = None
     played = None
     for B in (1024, 8192):
         specs, terrain = bench_torch.build_specs(B, dev)
@@ -1422,10 +1481,13 @@ def main() -> None:
         log(f"# phase 4 B={B}: median {med:.3f} s -> {B / med:.1f} solves/s ({n_conv}/{B} converged in every call), "
             f"{len(s)} calls min / median / max {min(s):.4f} / {med:.4f} / {max(s):.4f} s, "
             f"btd launches per call {t['btd_launches']}, assembly launches per call {t['assemble_launches']}, "
+            f"LM restore launches per call {t['restore_launches']}, "
             f"max violation {float(res.max_violation.max()):.3e}, peak memory {peak:.2f} GiB on {card}")
-        if not all(a == b >= cfg.max_iters for a, b in zip(t["btd_launches"], t["assemble_launches"])):
-            fail(f"the main path launched the BTD and assembly kernels {t['btd_launches']} and "
-                 f"{t['assemble_launches']} times, not one each per LM iteration (>= max_iters {cfg.max_iters})")
+        if not all(a == b == c >= cfg.max_iters
+                   for a, b, c in zip(t["btd_launches"], t["assemble_launches"], t["restore_launches"])):
+            fail(f"the main path launched the BTD, assembly and LM restore kernels {t['btd_launches']}, "
+                 f"{t['assemble_launches']} and {t['restore_launches']} times, not one each per LM iteration "
+                 f"(>= max_iters {cfg.max_iters})")
         if any(t["small_btd_launches"]):
             fail(f"the main path at B={B} launched the small-batch BTD kernel {t['small_btd_launches']} times: "
                  f"this batch is btd_kernel's")
@@ -1437,6 +1499,7 @@ def main() -> None:
         if tuple(table.shape) != (2501, 37) or not bool(torch.isfinite(table).all()):
             fail(f"sample_trajectory gave {tuple(table.shape)}, finite={bool(torch.isfinite(table).all())}")
         main_launches, main_asm_launches = launches, asm_launches
+        main_restore_launches = t["restore_launches"][-1]
         if B == 1024:
             played = (res.x[::4].clone(), index_spec(specs, slice(None, None, 4)))
             golden_table = table.cpu().numpy()           # phase 10's golden window
@@ -1569,7 +1632,22 @@ def main() -> None:
         spill_stores_bytes=tick_spills,
         **tick_row,
     )
-    print(json.dumps({"kernels": [row, small_row, tick_row, asm_row]}), flush=True)
+    restore_row = dict(
+        name="lm_restore",
+        route="cuda",
+        source="qtos_torch/csrc/lm_restore.cu",
+        replaces="no Pallas kernel: the torch.where accept/select of the LM loop (qtos_tpu's jnp.where in the "
+                 "loop of qtos_tpu/solver/solve.py, fused by XLA)",
+        # phase 4's B=8192 solve: one launch per LM iteration, like the assembly's
+        launches=main_restore_launches,
+        launches_quick_start=playback_out["restore_quick_start"],
+        launches_replan=runner_launches["restore_replan"],
+        launches_runner=runner_launches["restore_runner"],
+        launches_sharded=sharded_launches["restore"],
+        launches_towr=towr_launches["restore"],
+        **restore_row,
+    )
+    print(json.dumps({"kernels": [row, small_row, tick_row, asm_row, restore_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

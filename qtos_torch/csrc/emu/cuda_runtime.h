@@ -1,8 +1,8 @@
 // A CPU stand-in for the part of the CUDA runtime and device library that
-// qtos_torch/csrc/btd.cu, tick.cu and assemble.cu use, so that a kernel's own
-// source compiles with a host C++ compiler and runs on the CPU
+// qtos_torch/csrc/btd.cu, tick.cu, assemble.cu and lm_restore.cu use, so that a
+// kernel's own source compiles with a host C++ compiler and runs on the CPU
 // (tests/test_torch_btd_emu.py, tests/test_torch_tick_emu.py,
-// tests/test_torch_assemble_emu.py).
+// tests/test_torch_assemble_emu.py, tests/test_torch_lm_restore.py).
 //
 // Each CUDA thread is a std::thread; the blocks of a launch run one after
 // another, all threads of a block at once.  __syncwarp and the shuffles meet

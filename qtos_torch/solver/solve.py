@@ -15,8 +15,9 @@ import dataclasses
 import torch
 
 from qtos_torch.ops.btd import btd_solve
+from qtos_torch.ops.lm_restore import restore_rejected
 from qtos_torch.solver.assemble import assemble
-from qtos_torch.solver.spec import NV, ProblemSpec, SolverConfig, index_spec, map_tensors
+from qtos_torch.solver.spec import ProblemSpec, SolverConfig, index_spec, map_tensors
 from qtos_torch.solver.transcription import initial_guess, knot_aux, max_violation, violations
 from qtos_torch.terrain.heightfield import Terrain, slope_terrain
 from qtos_torch.utils.profiling import annotate
@@ -45,13 +46,19 @@ def _check_batch(specs: ProblemSpec, terrain: Terrain):
 def _solve_pass(specs: ProblemSpec, terrain: Terrain, cfg: SolverConfig,
                 x0: torch.Tensor | None = None) -> SolveResult:
     """`cfg.max_iters` delayed-gratification LM iterations, then the final
-    selection by max violation."""
+    selection by max violation.
+
+    The best accepted point's system is kept by reference: each iteration's
+    freshly assembled D, L, g are updated in place, where the step was
+    rejected, to the kept system (`ops.lm_restore.restore_rejected`, one
+    launch of the restore kernel on the card) and are then kept themselves.
+    `qtos_tpu`'s loop is pure and selects whole arrays by `jnp.where`; the
+    values are the same bit for bit, without the full-size copies."""
     B = specs.goal_r.shape[0]
     with annotate("qtos::solve.pass", B):
         with annotate("qtos::solve.presolve", B):
             if x0 is None:
                 x0 = initial_guess(specs, terrain, cfg)
-            K = x0.shape[1]
             dev, dt_ = x0.device, x0.dtype
             aux = knot_aux(specs, terrain, cfg)
             slope = slope_terrain(terrain, cfg.slope_probe_d)   # the slope grid, once per pass
@@ -60,9 +67,7 @@ def _solve_pass(specs: ProblemSpec, terrain: Terrain, cfg: SolverConfig,
             # evaluated by the NEXT iteration's assembly; on rejection the solver
             # reverts to the stored system of the last accepted point.
             x, x_best = x0, x0
-            D_b = torch.zeros((B, K, NV, NV), dtype=dt_, device=dev)
-            L_b = torch.zeros((B, K - 1, NV, NV), dtype=dt_, device=dev)
-            g_b = torch.zeros((B, K, NV), dtype=dt_, device=dev)
+            kept = None   # (D, L, g) of each window's best accepted point
             merit_b = torch.full((B,), float("inf"), dtype=dt_, device=dev)
             lm = torch.full((B,), cfg.lm_init, dtype=dt_, device=dev)
         for _ in range(cfg.max_iters):
@@ -70,16 +75,16 @@ def _solve_pass(specs: ProblemSpec, terrain: Terrain, cfg: SolverConfig,
                 D, L, g, merit = assemble(x, specs, terrain, cfg, aux, slope)
                 accept = merit < merit_b                                       # (B,)
                 span.set(accepted=accept)
-                a3, a4 = accept[:, None, None], accept[:, None, None, None]
-                x_best = torch.where(a3, x, x_best)
-                D_b = torch.where(a4, D, D_b)
-                L_b = torch.where(a4, L, L_b)
-                g_b = torch.where(a3, g, g_b)
+                # rejected windows take the kept system back (zeros before any is kept),
+                # in place; the fresh tensors then are the kept ones
+                restore_rejected(accept, (D, L, g), kept)
+                kept = (D, L, g)
+                x_best = torch.where(accept[:, None, None], x, x_best)
                 merit_b = torch.where(accept, merit, merit_b)
                 lm = torch.clamp(torch.where(accept, lm * cfg.lm_down, lm * cfg.lm_up),
                                  cfg.lm_min, cfg.lm_max)
-                damp = lm[:, None, None] * torch.diagonal(D_b, dim1=-2, dim2=-1) + 1e-8
-                dx = btd_solve(D_b + torch.diag_embed(damp), L_b, -g_b)
+                damp = lm[:, None, None] * torch.diagonal(D, dim1=-2, dim2=-1) + 1e-8
+                dx = btd_solve(D + torch.diag_embed(damp), L, -g)
                 x = x_best + dx
 
         # Final selection between the best ACCEPTED point and the last trial

@@ -133,8 +133,21 @@ def test_time_solves_counts_each_call():
     specs, terrain = bench_torch.build_specs(2, "cpu")
     t = bench_torch.time_solves(specs, terrain, bench_torch.solver_config(), repeats=1)
     assert t["B"] == 2 and t["converged"] == 2 and len(t["seconds"]) == 1 and min(t["seconds"]) > 0
-    assert t["btd_launches"] == t["assemble_launches"] == [0]      # the CPU runs the plain versions
+    assert t["btd_launches"] == t["assemble_launches"] == t["restore_launches"] == [0]  # the CPU runs the plain versions
     assert tuple(t["result"].x.shape) == (2, 41, 36)
+
+
+@pytest.mark.parametrize("restore", [[3, 3], [3, 2]])
+def test_chip_smoke_reads_the_launch_line(restore):
+    """chip_smoke.py's phase 11 gate parses `describe`'s `# B=` line: the
+    three solver kernels' launches per call must be equal."""
+    sys.path.insert(0, REPO)
+    import chip_smoke
+
+    sys.path.pop(0)
+    t = dict(B=8, seconds=[0.5, 0.4], converged=8, btd_launches=[3, 3], assemble_launches=[3, 3],
+             restore_launches=restore, small_btd_launches=[0, 0])
+    assert chip_smoke.bench_line_ok(bench_torch.describe(t, 10**9, False)) == (restore == [3, 3])
 
 
 def test_without_a_card_the_script_exits_non_zero():

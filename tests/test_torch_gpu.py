@@ -599,4 +599,91 @@ def test_bench_time_solves_on_card(cuda):
     cfg = bench_torch.solver_config()
     t = bench_torch.time_solves(specs, terrain, cfg, repeats=2)
     assert t["B"] == 64 and t["converged"] == 64 and len(t["seconds"]) == 2
-    assert t["btd_launches"] == t["assemble_launches"] == [cfg.max_iters] * 2
+    assert t["btd_launches"] == t["assemble_launches"] == t["restore_launches"] == [cfg.max_iters] * 2
+
+
+# The LM loop's restore kernel (qtos_torch/csrc/lm_restore.cu): against its
+# plain version and `torch.where` bit for bit at the sweep's and the replan's
+# shapes, and `solve_batch` through it against the frozen `torch.where` loop
+# of tests/test_torch_lm_restore.py.
+
+
+@pytest.mark.parametrize("case", ["accepted", "rejected", "mixed", "zero_fill"])
+@pytest.mark.parametrize("B,K", [(8192, 41), (4, 41), (1, 41)])
+def test_restore_kernel_matches_plain(cuda, B, K, case):
+    from test_torch_lm_restore import expected, systems
+
+    from qtos_torch.ops.lm_restore import restore_rejected, restore_rejected_plain
+
+    accept, fresh, kept = systems(B, K, case, seed=B + K)
+    accept, fresh = accept.to(cuda), tuple(t.to(cuda) for t in fresh)
+    kept = None if kept is None else tuple(t.to(cuda) for t in kept)
+    dst, plain = tuple(t.clone() for t in fresh), tuple(t.clone() for t in fresh)
+    launches = restore_rejected.launches
+    restore_rejected(accept, dst, kept)
+    assert restore_rejected.launches == launches + 1
+    restore_rejected_plain(accept, plain, kept)
+    torch.cuda.synchronize()
+    for got, p, want in zip(dst, plain, expected(accept, fresh, kept)):
+        assert torch.equal(got, p) and torch.equal(got, want)
+
+
+def test_restore_kernel_rejects_bad_inputs(cuda):
+    from test_torch_lm_restore import systems
+
+    from qtos_torch.ops.lm_restore import restore_rejected
+
+    accept, fresh, kept = systems(4, 41, "mixed", seed=11)
+    accept, fresh, kept = accept.to(cuda), tuple(t.to(cuda) for t in fresh), tuple(t.to(cuda) for t in kept)
+    with pytest.raises(ValueError, match="different devices"):
+        restore_rejected(accept, (fresh[0].cpu(), *fresh[1:]), None)
+    with pytest.raises(ValueError, match="not a contiguous copy"):
+        restore_rejected(accept, fresh, (kept[0].cpu(), *kept[1:]))
+    with pytest.raises(TypeError, match="float32"):
+        restore_rejected(accept, (fresh[0].half(), *fresh[1:]), None)
+    with pytest.raises(ValueError, match="bool accept"):
+        restore_rejected(accept.float(), fresh, kept)
+    with pytest.raises(ValueError, match="for a batch of 3"):
+        restore_rejected(accept[:3], fresh, kept)
+    with pytest.raises(ValueError, match="not a contiguous copy"):
+        restore_rejected(accept, fresh, (kept[0][:, :-1].contiguous(), *kept[1:]))
+    with pytest.raises(ValueError, match="contiguous tensors"):
+        restore_rejected(accept, (fresh[0].transpose(2, 3), *fresh[1:]), None)
+    shifted = torch.empty(fresh[0].numel() + 1, device=cuda)[1:].view(fresh[0].shape)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        restore_rejected(accept, (shifted, *fresh[1:]), None)
+
+
+@pytest.mark.parametrize("B", [4, 8192])
+def test_solve_batch_equals_the_where_loop_on_card(cuda, B, monkeypatch):
+    """`solve_batch` through the restore kernel gives the frozen `torch.where`
+    loop's x, status, merit, max_violation and viol bit for bit: the sweep's
+    batch (three LM iterations and the rescue pass) and the replan's (30 LM
+    iterations, which reject steps: asserted), one restore launch per LM
+    iteration."""
+    import importlib
+
+    from test_torch_lm_restore import assert_results_equal, where_pass
+
+    from qtos_torch.ops.assemble import assemble_kernel
+    from qtos_torch.ops.lm_restore import restore_rejected
+    from qtos_torch.solver import SolverConfig, solve_batch
+
+    solve_mod = importlib.import_module("qtos_torch.solver.solve")
+    terrain, specs, cfg = _bench_specs(cuda, B)
+    if B == 4:
+        cfg = SolverConfig(max_iters=30, tol=3e-3)
+    rejected = []
+
+    def spy(accept, dst, kept):
+        rejected.append(~accept)
+        restore_rejected(accept, dst, kept)
+
+    monkeypatch.setattr(solve_mod, "restore_rejected", spy)
+    restore_rejected.launches = assemble_kernel.launches = 0
+    new = solve_batch(specs, terrain, cfg)
+    assert restore_rejected.launches == assemble_kernel.launches == len(rejected) >= cfg.max_iters
+    if B == 4:
+        assert int(torch.stack(rejected).sum()) > 0, "the replan's 30 iterations must reject a step"
+    monkeypatch.setattr(solve_mod, "_solve_pass", where_pass)
+    assert_results_equal(new, solve_batch(specs, terrain, cfg))

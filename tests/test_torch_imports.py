@@ -31,6 +31,7 @@ PORT_MODULES = [
     "qtos_torch.ops.assemble",
     "qtos_torch.ops.batch_linalg",
     "qtos_torch.ops.btd",
+    "qtos_torch.ops.lm_restore",
     "qtos_torch.ops.rotations",
     "qtos_torch.ops.splines",
     "qtos_torch.ops.tick",
@@ -59,6 +60,7 @@ PORT_MODULES = [
     "qtos_torch.tools.assemble_floor",
     "qtos_torch.tools.btd_floor",
     "qtos_torch.tools.check_assemble",
+    "qtos_torch.tools.check_restore",
     "qtos_torch.tools.check_tick",
     "qtos_torch.tools.compare_btd",
     "qtos_torch.tools.crossover",
