@@ -258,12 +258,13 @@ def _plan_batch_core(rows, goals_r, goals_yaw, t0s, x0, drift3, dyaw, terrain,
         # terrain-infeasible.  Shifting z by the local terrain delta preserves
         # both stance seating and swing clearance; the CoM rides the same delta.
         if terrain is not None:
-            h_pre = height_at(terrain, feet_pre[..., 0], feet_pre[..., 1])
-            h_post = height_at(terrain, feet_xy[..., 0], feet_xy[..., 1])
-            feet_z = feet_z + (h_post - h_pre)
-            hc_pre = height_at(terrain, r_pre[:, 0], r_pre[:, 1])
-            hc_post = height_at(terrain, r[:, 0], r[:, 1])
-            r_z = r_z + (hc_post - hc_pre)
+            with annotate("qtos::terrain.reseat", k):
+                h_pre = height_at(terrain, feet_pre[..., 0], feet_pre[..., 1])
+                h_post = height_at(terrain, feet_xy[..., 0], feet_xy[..., 1])
+                feet_z = feet_z + (h_post - h_pre)
+                hc_pre = height_at(terrain, r_pre[:, 0], r_pre[:, 1])
+                hc_post = height_at(terrain, r[:, 0], r[:, 1])
+                r_z = r_z + (hc_post - hc_pre)
         feet = torch.cat([feet_xy, feet_z[..., None]], dim=-1)
         v_rot = _rot_xy(rows[:, 19:21], ca, sa)
         rows = torch.cat(

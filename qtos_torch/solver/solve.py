@@ -61,7 +61,8 @@ def _solve_pass(specs: ProblemSpec, terrain: Terrain, cfg: SolverConfig,
                 x0 = initial_guess(specs, terrain, cfg)
             dev, dt_ = x0.device, x0.dtype
             aux = knot_aux(specs, terrain, cfg)
-            slope = slope_terrain(terrain, cfg.slope_probe_d)   # the slope grid, once per pass
+            with annotate("qtos::terrain.slope", terrain.height.numel()):
+                slope = slope_terrain(terrain, cfg.slope_probe_d)   # the slope grid, once per pass
 
             # One residual/Jacobian evaluation per iteration: the candidate step is
             # evaluated by the NEXT iteration's assembly; on rejection the solver

@@ -687,3 +687,41 @@ def test_solve_batch_equals_the_where_loop_on_card(cuda, B, monkeypatch):
         assert int(torch.stack(rejected).sum()) > 0, "the replan's 30 iterations must reject a step"
     monkeypatch.setattr(solve_mod, "_solve_pass", where_pass)
     assert_results_equal(new, solve_batch(specs, terrain, cfg))
+
+
+def test_replan_on_exp2_terrain_on_card_matches_cpu(cuda):
+    """The benchmark's `replan.exp2` cell on the card: two replans of 4
+    candidates at K=41 on exp_2's 0.05 m grid (step, step_1, step_2, plane),
+    cut to 3 LM iterations, against the same replans on the CPU: knots,
+    tables and contacts within `replan.exp1`'s start_gap limit (these
+    replans read 3.3e-4 and 5.1e-4 on an H100; a terrain fault in the
+    assembly reads some 0.08 or more), one `btd_small_kernel`, one assembly
+    and one restore launch per LM iteration."""
+    from benchmark import harness, program, traffic
+    from benchmark.reference import compare
+
+    from qtos_torch.control.replan import plan_windows_batch
+    from qtos_torch.ops.assemble import assemble_kernel
+    from qtos_torch.ops.lm_restore import restore_rejected
+
+    iters, n_replans = 3, 2
+    cell = harness.load_cell("replan.exp2")
+    cfg = cell["cfg"]
+    rcfg = program.runner_config(cfg)
+    cut = rcfg.solver.replace(max_iters=iters)
+    inputs = traffic.make(dict(cell["mix"], pool=n_replans), cfg, 2**31 + 20_023, "cpu")
+    grid = harness.terrain_grid(cfg, "cpu")
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        terr = program.terrain(grid.to(dev), cfg)
+        btd_solve.launches = btd_solve.small_launches = assemble_kernel.launches = restore_rejected.launches = 0
+        got = [plan_windows_batch(*(inputs[k][p].to(dev) for k in ("rows", "goals_r", "goals_yaw")), terr, rcfg,
+                                  t0s=inputs["t0s"][p].to(dev), solver_cfg=cut) for p in range(n_replans)]
+        launches = (btd_solve.launches, btd_solve.small_launches, assemble_kernel.launches, restore_rejected.launches)
+        assert launches == ((iters * n_replans,) * 4 if dev.type == "cuda" else (0, 0, 0, 0)), launches
+        out[dev.type] = [torch.cat([g[j] for g in got]).cpu() for j in (1, 2)] + [torch.cat([g[0].x for g in got]).cpu()]
+    tables, contacts, x = out["cuda"]
+    tables_cpu, contacts_cpu, x_cpu = out["cpu"]
+    limit = 4e-3
+    assert compare.knot_gap(x, x_cpu) <= limit
+    assert compare.table_gap(tables, contacts, tables_cpu, contacts_cpu) <= limit

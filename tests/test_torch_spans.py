@@ -33,9 +33,12 @@ def _profiled(fn):
     return out, prof
 
 
+CELLS = 20 * 20                 # the terrain's grid: one "plane" tile
+
+
 def _pass(n: int, iters: int):
-    return ("qtos::solve.pass", n, [("qtos::solve.presolve", n, [])] + [("qtos::lm.iter", n, [])] * iters
-            + [("qtos::solve.select", n, [])])
+    return ("qtos::solve.pass", n, [("qtos::solve.presolve", n, [("qtos::terrain.slope", CELLS, [])])]
+            + [("qtos::lm.iter", n, [])] * iters + [("qtos::solve.select", n, [])])
 
 
 @pytest.fixture(scope="module")
@@ -55,7 +58,8 @@ def world():
                      ("qtos::solve_batch", B, [_pass(B, ITERS), _pass(B, RESCUE)])),
         plan_windows_batch=(lambda: plan_windows_batch(rows, goals, torch.zeros(2), terr, rcfg,
                                                        t0s=torch.tensor([0.0, 0.25])),
-                            ("qtos::replan", 2, [("qtos::replan.start", 2, []), _pass(2, ITERS),
+                            ("qtos::replan", 2, [("qtos::replan.start", 2, [("qtos::terrain.reseat", 2, [])]),
+                                                 _pass(2, ITERS),
                                                  ("qtos::sample", 2, [])])),
         playback=(lambda: playback(table, s0, terr, ControlParams()), ("qtos::playback", 2 * TICKS, [])),
     )
@@ -164,5 +168,5 @@ def test_log_cap_counts_what_it_drops(world, monkeypatch):
     solve()
     _profiled(solve)
     records = profiling.spans()
-    assert len(records) == 5 and profiling.spans_dropped() == 1 + (ITERS + 3) + (RESCUE + 3) - 5
+    assert len(records) == 5 and profiling.spans_dropped() == 1 + (ITERS + 4) + (RESCUE + 4) - 5
     assert [c["name"] for c in records[:3]] == ["qtos::solve_batch", "qtos::solve.pass", "qtos::solve.presolve"]
