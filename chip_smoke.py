@@ -31,7 +31,12 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      times at (4, 41, 36) and (1, 41, 36) in turns with btd_kernel's and
      beside the dense library call's, its design floor
      (tools/btd_floor.py), and both kernels at B = 1 .. 396 for the
-     crossover;
+     crossover; at every shape the solve damped by lm (the LM loop's
+     damping, added by the kernel) held bit for bit to the undamped solve of
+     the damped copy D + diag_embed(lm * diag(D) + 1e-8), D left as it was
+     and each damped call counted in btd_solve.damped_launches, and its
+     times beside the undamped ones at (8192, 41, 36), (4, 41, 36) and
+     (1, 41, 36);
   3b. the assembly kernel vs its plain version (tools/check_assemble.py) at
      every shape a path gives it ((1, 33), (4, 41), (20, 25), (64, 41),
      (1024, 41), (8192, 41), (3, 13), (512, 13), (1, 41)) on the bench
@@ -1213,10 +1218,10 @@ def main() -> None:
     def rel_residual(D, L, x, b):
         return float(torch.linalg.norm(block_tridiag_matvec(D, L, x) - b) / torch.linalg.norm(b))
 
-    def packed_launcher(D, L, b, small=False):
+    def packed_launcher(D, L, b, small=False, lm=None):
         """(launch, x): one launch of btd_kernel, or of the small-batch
         kernel, on inputs packed once (the output and the factors' scratch
-        allocated once, no wrapper, no count)."""
+        allocated once, no wrapper, no count), damped by `lm` if given."""
         lib = btd_mod._load()
         B, K, n = b.shape
         x = torch.empty_like(b)
@@ -1225,18 +1230,28 @@ def main() -> None:
         fn = lib.btd_small_solve_f32 if small else lib.btd_solve_f32
 
         def launch():
-            err = fn(D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, K, n, stream)
+            err = fn(D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, K, n, stream,
+                     None if lm is None else lm.data_ptr())
             if err != 0:
                 fail(f"phase 3: {'small-batch' if small else 'btd'} kernel launch failed at ({B}, {K}, {n}): "
                      f"CUDA error {err}")
 
         return launch, x
 
-    def packed_launch_ms(D, L, b, small=False):
+    def packed_launch_ms(D, L, b, small=False, lm=None):
         """ms per launch of one kernel alone, on inputs packed once."""
-        launch, _ = packed_launcher(D, L, b, small)
+        launch, _ = packed_launcher(D, L, b, small, lm)
         launch()
         return event_ms(launch, 20)
+
+    def damping(B, seed):
+        """lm (B,) from 1e-4 to 2 on the card."""
+        gen = torch.Generator(device=dev).manual_seed(1000 + seed)
+        return 10.0 ** (torch.rand((B,), generator=gen, device=dev) * 4.3 - 4.0)
+
+    def damped_copy(D, lm):
+        """The damped copy the LM loop made before the kernel took lm."""
+        return D + torch.diag_embed(lm[:, None, None] * torch.diagonal(D, dim1=-2, dim2=-1) + 1e-8)
 
     # The small-batch kernel's design floor at the probe's latencies
     # (tools/btd_floor.py; the probe was built in phase 2).
@@ -1248,6 +1263,7 @@ def main() -> None:
     small_rows = {}
     max_err_all = small_err = 0.0
     small_shapes = []
+    damped_shapes = []
     for i, (B, K, n) in enumerate(SHAPES):
         D, L, b, xt = spd_system(B, K, n, i)
         x = btd_solve(D, L, b)
@@ -1262,6 +1278,21 @@ def main() -> None:
                 f"(vs true x {err_true:.3e}), |Hx-b|/|b| {res:.3e}")
         if not (math.isfinite(err) and err <= KERNEL_ATOL and err_true <= KERNEL_ATOL):
             fail(line + f" exceeds atol {KERNEL_ATOL}")
+        # damped by lm: bit for bit the undamped solve of the damped copy, D untouched
+        lm = damping(B, i)
+        Dd, D0 = damped_copy(D, lm), D.clone()
+        before = btd_solve.damped_launches
+        xd, xc = btd_solve(D, L, b, lm=lm), btd_solve(Dd, L, b)
+        torch.cuda.synchronize()
+        same, untouched = torch.equal(xd, xc), torch.equal(D, D0)
+        counted = btd_solve.damped_launches - before
+        line += (f"; damped by lm in [{float(lm.min()):.2e}, {float(lm.max()):.2e}]: x equal to the undamped "
+                 f"solve of the damped copy bit for bit {same}, D untouched {untouched}, damped launches {counted}, "
+                 f"{float((xd - x).abs().max()):.3e} from the undamped x")
+        if not (same and untouched and counted == 1):
+            fail(line + " (gates: the damped copy's x bit for bit, D untouched, one damped launch)")
+        damped_shapes.append((B, K, n))
+        del Dd, D0, xd, xc
         if btd_mod.picks_small(B, K, n):
             # the shape goes to the small-batch kernel: held to the plain
             # version and to btd_kernel, bit for bit
@@ -1279,6 +1310,8 @@ def main() -> None:
             del xs, xw
         if (B, K, n) == (8192, 41, 36):
             ms = event_ms(lambda: btd_solve(D, L, b), 10)
+            damped_ms = [event_ms(lambda: btd_solve(D, L, b, lm=lm), 10) for _ in range(2)]
+            damped_ms.append(event_ms(lambda: btd_solve(D, L, b), 10))
             plain_ms = event_ms(lambda: block_tridiag_solve(D, L, b), 1)
             lib_calls = event_ms_calls(lambda: library_thomas(D, L, b), 3)
             lib_ex_calls = event_ms_calls(lambda: library_thomas(D, L, b, cholesky_ex), 3)
@@ -1296,7 +1329,10 @@ def main() -> None:
             if not lib_err <= KERNEL_ATOL:
                 fail(line + f": the library loop with cholesky_ex exceeds atol {KERNEL_ATOL}")
             kernel_row = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, library_ex_ms=lib_ex_ms, bound_ms=bms,
-                              bound_by=bby)
+                              bound_by=bby, damped_ms=damped_ms[0], undamped_ms_again=damped_ms[2])
+            line += (f"\n# phase 3 damped B={B} K={K} n={n} on {card}: btd_solve with lm {damped_ms[0]:.3f} / "
+                     f"{damped_ms[1]:.3f} ms, without {ms:.3f} / {damped_ms[2]:.3f} ms, in turns (undamped, damped, "
+                     f"damped, undamped)")
             occ = btd_mod.occupancy(n)
             dbytes = design_bytes(B, K, n)
             line += (f"\n# phase 3 rates B={B} K={K} n={n} on {card}: "
@@ -1315,6 +1351,7 @@ def main() -> None:
             warp_ms = packed_launch_ms(D, L, b)
             small_ms = packed_launch_ms(D, L, b, small=True)
             small_rows[B] = dict(ms=warp_ms, small_ms=small_ms,
+                                 small_damped_ms=packed_launch_ms(D, L, b, small=True, lm=lm),
                                  small_ms_again=packed_launch_ms(D, L, b, small=True),
                                  ms_again=packed_launch_ms(D, L, b),
                                  call_ms=event_ms(lambda: btd_solve(D, L, b), 20),
@@ -1325,7 +1362,8 @@ def main() -> None:
             del H
             r = small_rows[B]
             line += (f"\n# phase 3 times B={B} K={K} n={n} on {card}: small-batch kernel {r['small_ms']:.4f} / "
-                     f"{r['small_ms_again']:.4f} ms and btd_kernel {r['ms']:.4f} / {r['ms_again']:.4f} ms on inputs "
+                     f"{r['small_ms_again']:.4f} ms (damped by lm between them {r['small_damped_ms']:.4f} ms) and "
+                     f"btd_kernel {r['ms']:.4f} / {r['ms_again']:.4f} ms on inputs "
                      f"packed once, in turns (the wrapper's whole call {r['call_ms']:.4f} ms), plain "
                      f"{r['plain_ms']:.3f} ms, library loop with cholesky_ex {r['library_ms']:.3f} ms (vs plain x "
                      f"{lib_err:.3e}), dense cholesky_ex + cholesky_solve on ({B}, {K * n}, {K * n}) "
@@ -1361,30 +1399,34 @@ def main() -> None:
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     log(f"# phase 3 small-batch kernel: held to btd_kernel bit for bit and to the plain version at "
         f"{small_shapes}, max_abs_err {small_err:.3e}")
+    log(f"# phase 3 damped solves: bit for bit the damped copy's at {damped_shapes}, each counted once in "
+        f"btd_solve.damped_launches and the undamped solve of the copy not")
 
     # An LM system of the main path: first-iteration system at the bench
-    # distribution, damped as solve_batch damps it.
+    # distribution, damped as solve_batch damps it (by the kernel, from lm).
     specs, terrain = bench_torch.build_specs(8192, dev)
     cfg = bench_torch.solver_config()
     K = bench_torch.K
     x0 = initial_guess(specs, terrain, cfg)
     Dm, Lm, gm, _ = assemble(x0, specs, terrain, cfg, knot_aux(specs, terrain, cfg))
-    lm = cfg.lm_init * cfg.lm_down
-    Dm = Dm + torch.diag_embed(lm * torch.diagonal(Dm, dim1=-2, dim2=-1) + 1e-8)
+    lm = torch.full((Dm.shape[0],), cfg.lm_init * cfg.lm_down, device=dev)
     bm = -gm
-    xk = btd_solve(Dm, Lm, bm)
+    xk = btd_solve(Dm, Lm, bm, lm=lm)
+    Dm = damped_copy(Dm, lm)
+    same = torch.equal(xk, btd_solve(Dm, Lm, bm))
     xp = block_tridiag_solve(Dm, Lm, bm)
     torch.cuda.synchronize()
     scale = float(xp.abs().max())
     err = float((xk - xp).abs().max())
     res_k, res_p = rel_residual(Dm, Lm, xk, bm), rel_residual(Dm, Lm, xp, bm)
     line = (f"# phase 3 kernel vs plain on the main path's LM system (B=8192, K=41): "
-            f"max_abs_err {err:.3e} of max|x| {scale:.3e}; |Hx-b|/|b| kernel {res_k:.3e}, plain {res_p:.3e}")
+            f"max_abs_err {err:.3e} of max|x| {scale:.3e}; |Hx-b|/|b| kernel {res_k:.3e}, plain {res_p:.3e}; "
+            f"the kernel's damped x equal to its x on the damped copy bit for bit {same}")
     # These LM systems are badly conditioned (weights up to 60, damping
     # 7.5e-5): two correct float32 solvers differ by ~cond * 1e-7 relative,
     # measured 2.2e-3 of max|x| on an H100.  So the kernel is held to the
     # plain version at 1e-2 of max|x|, and its residual to the plain one's.
-    if not (math.isfinite(err) and err <= 1e-2 * scale and res_k <= max(2 * res_p, 1e-5)):
+    if not (same and math.isfinite(err) and err <= 1e-2 * scale and res_k <= max(2 * res_p, 1e-5)):
         fail(line)
     log(line)
     del Dm, Lm, gm, bm, xk, xp, x0

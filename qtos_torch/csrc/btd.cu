@@ -11,6 +11,12 @@
 // the factors C_0 .. C_{K-2}, each lower triangle packed row by row
 // (n(n+1)/2 floats, padded to a multiple of 4), for the back pass.
 //
+// With lm (B,) given (not null), the system solved is the Levenberg-Marquardt
+// damped one, D_k + diag(lm[s] diag(D_k) + 1e-8) in place of D_k: each
+// diagonal entry d of D_k becomes damped(d, lm[s]) once D_k has landed in
+// shared memory, before anything reads it (for k >= 1 by the lane or thread
+// that subtracts M M^T there).  D itself is never written.
+//
 // Recursion (the TPU kernel's, without its transposes):
 //   S_0 = D_0, C_0 = chol(S_0), y_0 = b_0
 //   k >= 1:  M C_{k-1}^T = L_{k-1}   and   C_{k-1} z = y_{k-1}   (row solves)
@@ -95,6 +101,20 @@ __host__ __device__ constexpr int warp_floats(int n) {
 }
 
 __device__ __forceinline__ float4 ld4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+
+// A diagonal entry d of D_k damped by l: d + (l d + 1e-8), each operation
+// rounded on its own (no contraction into an FMA), as the two elementwise
+// PyTorch kernels and the add of `D + diag_embed(lm * diagonal(D) + 1e-8)`
+// round them.
+__device__ __forceinline__ float damped(float d, float l) {
+  return __fadd_rn(d, __fadd_rn(__fmul_rn(l, d), 1e-8f));
+}
+
+// Damps the diagonal of the n x n block S (pitch ld) by l, entry i on
+// thread i mod nthreads (tid the thread's number among them).
+__device__ __forceinline__ void damp_diagonal(float* S, int n, int ld, float l, int tid, int nthreads) {
+  for (int i = tid; i < n; i += nthreads) S[i * ld + i] = damped(S[i * ld + i], l);
+}
 
 // Starts the copy dst[i * ld + j] = src[i * n + j] of an n x n block from
 // device memory (cp.async; complete after cp_wait).  16-byte copies when
@@ -315,14 +335,17 @@ __device__ void forward_rows(float* M, const float* C, int rows, int n, int ldm,
 
 // S[i][l] = D[i][l] - sum_c M[i][c] M[l][c] on the lower triangle (l <= i),
 // with D in S (pitch lds, a multiple of 4) and M at pitch ldm: the sum is
-// taken first and subtracted once, as the plain version's D - M M^T.  The
+// taken first and subtracted once, as the plain version's D - M M^T; with
+// lm not null, the lane of each diagonal tile damps its diagonal entries by
+// lm[s] just before it subtracts (D waited for by then).  The
 // triangle is cut into 4 x 4 tiles (T (T + 1) / 2 of them, T = ceil(n / 4))
 // and lane takes every 32nd tile: per column c it reads 4 + 4 values of M
 // for 16 FMAs.  D may still be on its way into S: the first tiles' sums
 // are taken before waiting for it.  Entries above the diagonal in diagonal
 // tiles are overwritten with values nobody reads; rows and columns past n
 // read row n - 1 and are dropped.
-__device__ void rank_update(float* S, const float* M, int n, int lds, int ldm, int lane) {
+__device__ void rank_update(float* S, const float* M, int n, int lds, int ldm, int lane,
+                            const float* __restrict__ lm, size_t s) {
   const int T = (n + 3) >> 2;
   const int nt = T * (T + 1) / 2;
   int ti = 0, tl = lane;
@@ -357,11 +380,19 @@ __device__ void rank_update(float* S, const float* M, int n, int lds, int ldm, i
     }
     if (t0 == 0) cp_wait();  // D in S
     if (active) {
+      const bool diag = lm != nullptr && ti == tl;
 #pragma unroll
       for (int a = 0; a < 4; ++a) {
         if (4 * ti + a < n) {
           float* Sa = S + (4 * ti + a) * lds + 4 * tl;
-          const float4 d = ld4(Sa);
+          float4 d = ld4(Sa);
+          if (diag) {
+            const float l = lm[s];
+            if (a == 0) d.x = damped(d.x, l);
+            if (a == 1) d.y = damped(d.y, l);
+            if (a == 2) d.z = damped(d.z, l);
+            if (a == 3) d.w = damped(d.w, l);
+          }
           *reinterpret_cast<float4*>(Sa) = make_float4(d.x - acc[a][0], d.y - acc[a][1],
                                                        d.z - acc[a][2], d.w - acc[a][3]);
         }
@@ -409,12 +440,14 @@ __device__ void chol_solve_vec(const float* P, float& r0, float& r1, int n, int 
   }
 }
 
-// One scenario on one warp.  Db, Lb, bb, xb, Cb point at the scenario's
-// slices; CS, M, v at the warp's shared memory.
+// One scenario, s, on one warp.  Db, Lb, bb, xb, Cb point at the
+// scenario's slices, lm[s] is its damping (lm null: undamped; the kernel's
+// parameter and s, not a pointer kept through the scenario, which would hold
+// registers); CS, M, v at the warp's shared memory.
 __device__ void solve_scenario(const float* __restrict__ Db, const float* __restrict__ Lb,
                                const float* __restrict__ bb, float* __restrict__ xb,
-                               float* __restrict__ Cb, float* CS, float* M, float* v,
-                               int K, int n, bool vec4, int lane) {
+                               float* __restrict__ Cb, const float* __restrict__ lm, size_t s,
+                               float* CS, float* M, float* v, int K, int n, bool vec4, int lane) {
   const int lds = cs_pitch(n), ldm = n + 1, npk = packed_floats(n);
   const size_t nn = (size_t)n * n;
   const bool has0 = lane < n, has1 = lane + 32 < n;
@@ -429,6 +462,7 @@ __device__ void solve_scenario(const float* __restrict__ Db, const float* __rest
     xb[i] = y;
   }
   cp_wait();
+  if (lm) { damp_diagonal(CS, n, lds, lm[s], lane, 32); __syncwarp(); }  // D_0
   chol_inplace(CS, K > 1 ? Cb : nullptr, n, lds, lane);
 
   for (int k = 1; k < K; ++k) {
@@ -461,7 +495,7 @@ __device__ void solve_scenario(const float* __restrict__ Db, const float* __rest
         yk[lane + 32] = s1;
       }
     }
-    rank_update(CS, M, n, lds, ldm, lane);  // S_k = D_k - M M^T
+    rank_update(CS, M, n, lds, ldm, lane, lm, s);  // S_k = D_k - M M^T
     __syncwarp();
     if (k + 1 < K) copy_block(M, Lb + k * nn, n, ldm, vec4, lane);
     chol_inplace(CS, k + 1 < K ? Cb + (size_t)k * npk : nullptr, n, lds, lane);
@@ -527,7 +561,7 @@ __device__ void solve_scenario(const float* __restrict__ Db, const float* __rest
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 btd_kernel(const float* __restrict__ D, const float* __restrict__ L,
            const float* __restrict__ b, float* __restrict__ x,
-           float* __restrict__ Cp, int B, int K, int n, int vec4) {
+           float* __restrict__ Cp, const float* __restrict__ lm, int B, int K, int n, int vec4) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int lane = threadIdx.x & 31;
@@ -539,7 +573,7 @@ btd_kernel(const float* __restrict__ D, const float* __restrict__ L,
   for (size_t s = (size_t)blockIdx.x * kWarps + warp; s < (size_t)B;
        s += (size_t)gridDim.x * kWarps) {
     solve_scenario(D + s * K * nn, L + s * (K - 1) * nn, b + s * K * n, x + s * K * n,
-                   Cp + s * (K - 1) * npk, CS, M, v, K, n, vec4 != 0, lane);
+                   Cp + s * (K - 1) * npk, lm, s, CS, M, v, K, n, vec4 != 0, lane);
     __syncwarp();
   }
 }
@@ -702,8 +736,11 @@ __device__ __forceinline__ void forward_row_block(float* out, const float* in, c
 }
 
 // rank_update's lower triangle of S = D - M M^T on 2 x 2 tiles, tile t0,
-// t0 + stride, ...: each sum taken over c = 0, 1, ... and subtracted once.
-__device__ void rank_tiles(float* S, const float* M, int n, int lds, int ldm, int t0, int stride) {
+// t0 + stride, ...: each sum taken over c = 0, 1, ... and subtracted once,
+// the diagonal entries damped by lm[s] first where lm is not null (the
+// kernel's parameter and its scenario s, as in btd_kernel).
+__device__ void rank_tiles(float* S, const float* M, int n, int lds, int ldm, int t0, int stride,
+                           const float* __restrict__ lm, int s) {
   const int T = (n + 1) >> 1;
   const int nt = T * (T + 1) / 2;
   for (int t = t0; t < nt; t += stride) {
@@ -723,11 +760,15 @@ __device__ void rank_tiles(float* S, const float* M, int n, int lds, int ldm, in
       acc10 += x1 * y0;
       acc11 += x1 * y1;
     }
-    S[i * lds + l] -= acc00;
+    const bool diag = lm != nullptr && i == l;
+    const float lv = diag ? lm[s] : 0.f;
+    const float d00 = S[i * lds + l];
+    S[i * lds + l] = (diag ? damped(d00, lv) : d00) - acc00;
     if (l + 1 <= i) S[i * lds + l + 1] -= acc01;
     if (i + 1 < n) {
       S[(i + 1) * lds + l] -= acc10;
-      S[(i + 1) * lds + l + 1] -= acc11;
+      const float d11 = S[(i + 1) * lds + l + 1];
+      S[(i + 1) * lds + l + 1] = (diag ? damped(d11, lv) : d11) - acc11;
     }
   }
 }
@@ -859,7 +900,8 @@ __device__ __forceinline__ void chol_solve_rows(const float* P, float (&r)[4], i
 
 __global__ void __launch_bounds__(kSmallThreads, 1)
 btd_small_kernel(const float* __restrict__ D, const float* __restrict__ L,
-                 const float* __restrict__ b, float* __restrict__ x, int K, int n) {
+                 const float* __restrict__ b, float* __restrict__ x,
+                 const float* __restrict__ lm, int K, int n) {
   extern __shared__ float4 smem4[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int lds = cs_pitch(n), ldm = n + 1, npk = packed_floats(n);
@@ -901,6 +943,7 @@ btd_small_kernel(const float* __restrict__ D, const float* __restrict__ L,
   if (K > 2) copy_span(Ls(1), Lb + nn, n * n, tid, kSmallThreads);
   __pipeline_wait_prior(0);
   __syncthreads();
+  if (warp == 0 && lm) damp_diagonal(CS(0), n, lds, lm[s], lane, 32);  // D_0, before warp 0's Cholesky
 
   for (int k = 0; k < K; ++k) {
     float* const S = CS(k & 1);  // D_k -> S_k -> C_k
@@ -909,7 +952,7 @@ btd_small_kernel(const float* __restrict__ D, const float* __restrict__ L,
       if (k + 1 < K) copy_rows(CS((k + 1) & 1), lds, Db + (k + 1) * nn, n, tid, kSmallThreads);
       if (k + 1 < K - 1) copy_span(Ls((k + 1) & 1), Lb + (k + 1) * nn, n * n, tid, kSmallThreads);
       if (tid < kTileThreads) {
-        rank_tiles(S, M, n, lds, ldm, tid, kTileThreads);  // S_k = D_k - M M^T
+        rank_tiles(S, M, n, lds, ldm, tid, kTileThreads, lm, (int)s);  // S_k = D_k - M M^T
       } else if (tid - kTileThreads < n) {                // y_k = b_k - M z
         const int i = tid - kTileThreads;
         const float* Mi = M + i * ldm;
@@ -1023,9 +1066,10 @@ extern "C" int btd_resident_warps(int n) {
 
 // Launches one solve on `stream`; returns the launch's CUDA error (0 when
 // it was accepted).  C is 16-byte aligned, with room for
-// btd_packed_floats(n) floats per factor.
+// btd_packed_floats(n) floats per factor.  lm: B floats, the damping of each
+// scenario's diagonal blocks (see the top of this file), or null.
 extern "C" int btd_solve_f32(const void* D, const void* L, const void* b, void* x,
-                             void* C, int B, int K, int n, void* stream) {
+                             void* C, int B, int K, int n, void* stream, const void* lm) {
   if (B <= 0 || K <= 0 || n <= 0 || n > kMaxN || (uintptr_t)C % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem = btd_smem_bytes(n);
@@ -1045,7 +1089,8 @@ extern "C" int btd_solve_f32(const void* D, const void* L, const void* b, void* 
   const float* bf = static_cast<const float*>(b);
   float* xf = static_cast<float*>(x);
   float* Cf = static_cast<float*>(C);
-  void* args[] = {&Df, &Lf, &bf, &xf, &Cf, &B, &K, &n, &vec4};
+  const float* lmf = static_cast<const float*>(lm);
+  void* args[] = {&Df, &Lf, &bf, &xf, &Cf, &lmf, &B, &K, &n, &vec4};
   err = cudaLaunchKernel(reinterpret_cast<const void*>(&btd_kernel), dim3(grid), dim3(kWarps * 32),
                          args, smem, static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
@@ -1076,7 +1121,7 @@ extern "C" int btd_pick_small(int B, int K, int n) {
 // `stream`; returns the launch's CUDA error (0 when it was accepted).  Its
 // arguments are btd_solve_f32's; it takes no scratch (C is not read).
 extern "C" int btd_small_solve_f32(const void* D, const void* L, const void* b, void* x, void* C,
-                                   int B, int K, int n, void* stream) {
+                                   int B, int K, int n, void* stream, const void* lm) {
   (void)C;
   if (B <= 0 || K <= 0 || n <= 0 || n > kMaxN) return (int)cudaErrorInvalidValue;
   const size_t smem = btd_small_smem_bytes(n, K);
@@ -1086,7 +1131,8 @@ extern "C" int btd_small_solve_f32(const void* D, const void* L, const void* b, 
   const float* Lf = static_cast<const float*>(L);
   const float* bf = static_cast<const float*>(b);
   float* xf = static_cast<float*>(x);
-  void* args[] = {&Df, &Lf, &bf, &xf, &K, &n};
+  const float* lmf = static_cast<const float*>(lm);
+  void* args[] = {&Df, &Lf, &bf, &xf, &lmf, &K, &n};
   err = cudaLaunchKernel(btd_small_kernel, dim3(B), dim3(kSmallThreads), args, smem,
                          static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();

@@ -2,8 +2,8 @@
 // this directory, from the repository's root:
 //   g++ -std=c++17 -O2 -pthread -shared -fPIC -I qtos_torch/csrc/emu
 //       -o libbtd_emu.so qtos_torch/csrc/emu/btd_emu.cpp
-using EmuKernelSig = void(const float*, const float*, const float*, float*, float*, int, int,
-                          int, int);
+using EmuKernelSig = void(const float*, const float*, const float*, float*, float*, const float*,
+                          int, int, int, int);
 #include "cuda_runtime.h"
 
 namespace {

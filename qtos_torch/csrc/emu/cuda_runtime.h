@@ -328,6 +328,10 @@ inline long long clock64() {  // nanoseconds where the card counts cycles
              std::chrono::steady_clock::now().time_since_epoch()).count();
 }
 inline float __fdividef(float a, float b) { return a / b; }
+// Rounded to nearest, never contracted (the stand-in is built without FMA
+// contraction, so plain operations round each on their own).
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
 
 constexpr size_t kEmuSmemBytes = 232448;  // the most a block may ask for on an H100
 constexpr int kEmuBlocksPerSm = 1;

@@ -3,7 +3,9 @@
 `btd_solve(D, L, b)` has the batch-major signature of `qtos_tpu`'s
 `btd_solve_pallas`.  On a CUDA tensor it launches the hand-written kernel (or
 raises); on a CPU tensor it runs the plain version,
-`qtos_torch.ops.tridiag.block_tridiag_solve`.
+`qtos_torch.ops.tridiag.block_tridiag_solve`.  With `lm` it solves the LM
+loop's damped system, the damping added by the kernel as each diagonal block
+lands in shared memory: D is read, never written or copied.
 
 The source holds two kernels, compiled with `nvcc` for sm_90a at first use
 into `qtos_torch/_build/` (keyed by the source's hash) and loaded with
@@ -82,7 +84,7 @@ def _load():
             lib = ctypes.CDLL(build())
             vp = ctypes.c_void_p
             for fn in (lib.btd_solve_f32, lib.btd_small_solve_f32):
-                fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp]
+                fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, vp]
                 fn.restype = ctypes.c_int
             lib.btd_pick_small.argtypes = [ctypes.c_int] * 3
             lib.btd_pick_small.restype = ctypes.c_int
@@ -128,7 +130,7 @@ def work(B: int, K: int, n: int) -> tuple:
     return nbytes, B * per
 
 
-def _check(D, L, b):
+def _check(D, L, b, lm):
     if not (D.dtype == L.dtype == b.dtype == torch.float32):
         raise TypeError(f"btd_solve takes float32, got {D.dtype}, {L.dtype}, {b.dtype}")
     if D.dim() != 4 or L.dim() != 4 or b.dim() != 3:
@@ -142,26 +144,38 @@ def _check(D, L, b):
         raise ValueError(f"btd_solve inputs on different devices: {D.device}, {L.device}, {b.device}")
     if not (D.is_contiguous() and L.is_contiguous() and b.is_contiguous()):
         raise ValueError("btd_solve takes contiguous tensors")
+    if lm is not None:
+        if lm.dtype != torch.float32 or tuple(lm.shape) != (B,) or lm.device != D.device:
+            raise ValueError(f"btd_solve's lm is float32 ({B},) on {D.device}, got {lm.dtype} "
+                             f"{tuple(lm.shape)} on {lm.device}")
+        if not lm.is_contiguous():
+            raise ValueError("btd_solve takes a contiguous lm")
     return B, K, n
 
 
-def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor,
+              lm: torch.Tensor | None = None) -> torch.Tensor:
     """Solve batched SPD block-tridiagonal systems H x = b.
 
     Args:
       D: (B, K, n, n) diagonal blocks.
       L: (B, K-1, n, n) sub-diagonal blocks.
       b: (B, K, n) right-hand sides.
+      lm: optional (B,) Levenberg-Marquardt damping: H's diagonal blocks are
+        then D + diag(lm * diag(D) + 1e-8), each operation rounded in float32
+        as written (D is not written).
 
     Returns:
       x: (B, K, n).
 
     `btd_solve.launches` counts kernel launches (one per call on CUDA),
     `btd_solve.small_launches` those of them that went to the small-batch
-    kernel.
+    kernel, `btd_solve.damped_launches` those that took `lm`.
     """
-    B, K, n = _check(D, L, b)
+    B, K, n = _check(D, L, b, lm)
     if D.device.type == "cpu":
+        if lm is not None:
+            D = D + torch.diag_embed(lm[:, None, None] * torch.diagonal(D, dim1=-2, dim2=-1) + 1e-8)
         return block_tridiag_solve(D, L, b)
     if D.device.type != "cuda":
         raise ValueError(f"btd_solve runs on cuda or cpu, not {D.device}")
@@ -180,14 +194,17 @@ def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor) -> torch.Tensor
             scratch = torch.empty((B, K - 1, lib.btd_packed_floats(n)), dtype=D.dtype, device=D.device)
         stream = torch.cuda.current_stream(D.device).cuda_stream
         err = launch(D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(),
-                     None if scratch is None else scratch.data_ptr(), B, K, n, stream)
+                     None if scratch is None else scratch.data_ptr(), B, K, n, stream,
+                     None if lm is None else lm.data_ptr())
     if err != 0:
         kind = "small-batch" if small else "btd"
         raise RuntimeError(f"{kind} kernel launch failed at ({B}, {K}, {n}): CUDA error {err}")
     btd_solve.launches += 1
     btd_solve.small_launches += small
+    btd_solve.damped_launches += lm is not None
     return x
 
 
 btd_solve.launches = 0
 btd_solve.small_launches = 0
+btd_solve.damped_launches = 0

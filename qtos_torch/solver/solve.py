@@ -2,10 +2,10 @@
 `qtos_tpu.solver.solve`).
 
 Per iteration: batch-major assembly of the block-tridiagonal normal
-equations (`solver.assemble`, the CUDA kernel on the card) -> diagonal damping -> one batched BTD solve
-(`ops.btd.btd_solve`, the CUDA kernel on the card) -> per-scenario
-accept/reject.  A fixed iteration count keeps every scenario on the same
-instruction stream.
+equations (`solver.assemble`, the CUDA kernel on the card) -> one batched BTD
+solve of the damped system (`ops.btd.btd_solve` with the LM damping, which the
+CUDA kernel adds as it reads D on the card) -> per-scenario accept/reject.  A
+fixed iteration count keeps every scenario on the same instruction stream.
 """
 
 from __future__ import annotations
@@ -84,8 +84,7 @@ def _solve_pass(specs: ProblemSpec, terrain: Terrain, cfg: SolverConfig,
                 merit_b = torch.where(accept, merit, merit_b)
                 lm = torch.clamp(torch.where(accept, lm * cfg.lm_down, lm * cfg.lm_up),
                                  cfg.lm_min, cfg.lm_max)
-                damp = lm[:, None, None] * torch.diagonal(D, dim1=-2, dim2=-1) + 1e-8
-                dx = btd_solve(D + torch.diag_embed(damp), L, -g)
+                dx = btd_solve(D, L, -g, lm=lm)
                 x = x_best + dx
 
         # Final selection between the best ACCEPTED point and the last trial

@@ -1,7 +1,7 @@
 r"""Build several versions of the BTD kernel source and time them in turns on
 one CUDA card.
 
-    python3 -m qtos_torch.tools.compare_btd [--batches B,B,...] [--no-bench] \
+    python3 -m qtos_torch.tools.compare_btd [--batches B,B,...] [--no-bench] [--damped] \
         NAME=PATH[!REGEX[!TEXT]] ...
 
 Each PATH is a version of `qtos_torch/csrc/btd.cu` with the same C entry
@@ -19,7 +19,12 @@ again.  For example
 
 Each kernel of a version is timed on its own: `NAME:warp` is `btd_kernel`
 (through `btd_solve_f32`), `NAME:small` the small-batch kernel (through
-`btd_small_solve_f32`).  The script prints each build's registers and spills
+`btd_small_solve_f32`).  A version whose entries take the LM damping `lm`
+(their last argument) is launched undamped; with `--damped` each of its
+kernels is also timed damped by an lm of the batch's size, as
+`NAME:warp+lm` and `NAME:small+lm`, and held bit for bit to the first
+kernel's x on the damped copy D + diag_embed(lm * diag(D) + 1e-8).  The
+script prints each build's registers and spills
 and, where the toolkit has `cuobjdump`, each kernel's SASS instructions and
 local-memory instructions (LDL, STL); each kernel's max |x - plain| at a few
 shapes and whether its x equals the first kernel's bit for bit there; its time
@@ -81,13 +86,19 @@ def _build(name: str, src: str, out_dir: str) -> tuple:
     return out, report
 
 
-def _load(path: str):
+def _takes_lm(src: str) -> bool:
+    """Whether the version's entries take the LM damping as their last argument."""
+    with open(src) as f:
+        return re.search(r"int btd_solve_f32\([^)]*\blm\)", f.read()) is not None
+
+
+def _load(path: str, takes_lm: bool):
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     for entry in ENTRIES.values():
         if hasattr(lib, entry):
             fn = getattr(lib, entry)
-            fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+            fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp] + [vp] * takes_lm
             fn.restype = ci
     if hasattr(lib, "btd_packed_floats"):
         lib.btd_packed_floats.argtypes = [ci]
@@ -97,12 +108,14 @@ def _load(path: str):
 def main(argv: list[str]) -> None:
     if not torch.cuda.is_available():
         sys.exit("compare_btd: needs a CUDA card")
-    batches, bench, specs = DEFAULT_BATCHES, True, []
+    batches, bench, damped, specs = DEFAULT_BATCHES, True, False, []
     for arg in argv:
         if arg.startswith("--batches="):
             batches = tuple(int(b) for b in arg.split("=", 1)[1].split(","))
         elif arg == "--no-bench":
             bench = False
+        elif arg == "--damped":
+            damped = True
         else:
             specs.append(arg)
     with tempfile.TemporaryDirectory(prefix="compare_btd_") as tmp:
@@ -114,10 +127,13 @@ def main(argv: list[str]) -> None:
             print("\n".join(report), flush=True)
         kernels = {}
         for name, (path, _) in built.items():
-            lib = _load(path)
+            takes_lm = _takes_lm(sources[name])
+            lib = _load(path, takes_lm)
             for kind, entry in ENTRIES.items():
                 if hasattr(lib, entry):
-                    kernels[f"{name}:{kind}"] = (lib, getattr(lib, entry))
+                    kernels[f"{name}:{kind}"] = (lib, getattr(lib, entry), takes_lm, False)
+                    if damped and takes_lm:
+                        kernels[f"{name}:{kind}+lm"] = (lib, getattr(lib, entry), True, True)
         _compare(kernels, batches, bench)
 
 
@@ -125,16 +141,26 @@ def _compare(kernels: dict, batches, bench: bool) -> None:
     dev = torch.device("cuda")
 
     def solve(name, D, L, b):
-        lib, fn = kernels[name]
+        lib, fn, takes_lm, damped = kernels[name]
         B, K, n, _ = D.shape
         x = torch.empty_like(b)
         C = (torch.empty((B, K, lib.btd_packed_floats(n)), device=dev) if hasattr(lib, "btd_packed_floats")
              else torch.empty_like(D))
+        lm = damping(B) if damped else None
         err = fn(D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(), C.data_ptr(), B, K, n,
-                 torch.cuda.current_stream().cuda_stream)
+                 torch.cuda.current_stream().cuda_stream, *([None if lm is None else lm.data_ptr()] * takes_lm))
         if err:
             raise RuntimeError(f"{name}: launch failed at ({B}, {K}, {n}) with CUDA error {err}")
         return x
+
+    lms = {}
+
+    def damping(B):
+        """lm (B,) from 1e-4 to 2, one per batch size."""
+        if B not in lms:
+            gen = torch.Generator(device=dev).manual_seed(B)
+            lms[B] = 10.0 ** (torch.rand((B,), generator=gen, device=dev) * 4.3 - 4.0)
+        return lms[B]
 
     def system(B, K, n, seed):
         gen = torch.Generator(device=dev).manual_seed(seed)
@@ -158,13 +184,17 @@ def _compare(kernels: dict, batches, bench: bool) -> None:
     first = next(iter(kernels))
     for B, K, n in CHECK_SHAPES:
         D, L, b = system(B, K, n, 1)
-        xp = block_tridiag_solve(D, L, b)
+        lm = damping(B)
+        Dd = D + torch.diag_embed(lm[:, None, None] * torch.diagonal(D, dim1=-2, dim2=-1) + 1e-8)
+        xp = {False: block_tridiag_solve(D, L, b), True: block_tridiag_solve(Dd, L, b)}
+        ref = {False: solve(first, D, L, b), True: solve(first, Dd, L, b)}
         xs = {name: solve(name, D, L, b) for name in kernels}
         torch.cuda.synchronize()
-        print(f"max |x - plain| at ({B}, {K}, {n}):",
-              {name: float((x - xp).abs().max()) for name, x in xs.items()},
-              f"x equal to {first}'s bit for bit:",
-              {name: bool(torch.equal(x, xs[first])) for name, x in xs.items() if name != first}, flush=True)
+        damped = {name: kernels[name][3] for name in kernels}
+        print(f"max |x - plain| at ({B}, {K}, {n}) (+lm: of the damped copy):",
+              {name: float((x - xp[damped[name]]).abs().max()) for name, x in xs.items()},
+              f"x equal to {first}'s (+lm: on the damped copy) bit for bit:",
+              {name: bool(torch.equal(x, ref[damped[name]])) for name, x in xs.items() if name != first}, flush=True)
     order = list(kernels) + list(kernels)[::-1]
     for B in batches:
         D, L, b = system(B, 41, 36, 2)

@@ -59,23 +59,37 @@ def test_matvec_matches():
     np.testing.assert_allclose(y.numpy(), ref, rtol=1e-5, atol=1e-4)
 
 
-def test_wrapper_cpu_runs_plain_and_counts_nothing():
-    D, L, b, _ = _system(2, 5, 36, 3)
-    before = btd_solve.launches
-    x = btd_solve(torch.from_numpy(D), torch.from_numpy(L), torch.from_numpy(b))
-    ref = block_tridiag_solve(torch.from_numpy(D), torch.from_numpy(L), torch.from_numpy(b))
-    torch.testing.assert_close(x, ref, rtol=0, atol=0)
-    assert btd_solve.launches == before
+@pytest.mark.parametrize("damped", [False, True], ids=["undamped", "damped"])
+def test_wrapper_cpu_runs_plain_and_counts_nothing(damped):
+    """On the CPU the wrapper is the plain version, damped by lm as the LM
+    loop damped its copy of D (D + diag_embed(lm * diag(D) + 1e-8)), bit
+    for bit, with D left as it was; no launch is counted."""
+    D, L, b = (torch.from_numpy(a) for a in _system(2, 5, 36, 3)[:3])
+    lm = torch.tensor([7.5e-5, 0.4]) if damped else None
+    D0 = D.clone()
+    before = (btd_solve.launches, btd_solve.small_launches, btd_solve.damped_launches)
+    x = btd_solve(D, L, b, lm=lm)
+    H = D + torch.diag_embed(lm[:, None, None] * torch.diagonal(D, dim1=-2, dim2=-1) + 1e-8) if damped else D
+    assert torch.equal(x, block_tridiag_solve(H, L, b))
+    assert torch.equal(D, D0)
+    assert (btd_solve.launches, btd_solve.small_launches, btd_solve.damped_launches) == before
 
 
-@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous"])
+@pytest.mark.parametrize("bad", ["dtype", "shape", "contiguous", "lm_dtype", "lm_shape", "lm_contiguous"])
 def test_wrapper_rejects_bad_inputs(bad):
     D, L, b, _ = (torch.from_numpy(a) for a in _system(2, 4, 6, 4))
+    lm = None
     if bad == "dtype":
         D = D.double()
     elif bad == "shape":
         L = L[:, :-1]
-    else:
+    elif bad == "contiguous":
         D = D.transpose(-1, -2)
+    elif bad == "lm_dtype":
+        lm = torch.ones(2, dtype=torch.float64)
+    elif bad == "lm_shape":
+        lm = torch.ones(2, 1)
+    else:
+        lm = torch.ones(4)[::2]
     with pytest.raises((TypeError, ValueError)):
-        btd_solve(D, L, b)
+        btd_solve(D, L, b, lm=lm)

@@ -25,6 +25,14 @@ the block's threads at once and one at a time in either order
 and copy waits must fail.  The rule that picks between the two kernels is
 checked at the edge of the shared memory the small kernel's factors need.
 
+Both kernels take the LM damping `lm` (B,) and add it to each diagonal block
+as it lands in shared memory.  At every shape above, each damped kernel is
+held to the plain solve of the damped copy `D + diag_embed(lm * diag(D) +
+1e-8)` within ATOL and, bit for bit, to its own undamped launch on that copy
+(PyTorch rounds the copy's operations one by one, as the kernels do), and the
+two damped kernels to each other; a copy of the source that damps a block
+before its copy is waited for must fail.
+
 Tolerance atol=5e-4 as tests/test_pallas_btd.py: float32 block Thomas on
 diagonally dominant systems with O(1) solutions.
 """
@@ -47,15 +55,17 @@ EMU_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
                        "qtos_torch", "csrc", "emu")
 
 # Loads the library, solves the system saved in the directory with each
-# entry named after the mode (btd_solve_f32 when none), saves each x.
+# entry named after the mode (btd_solve_f32 when none), saves each x.  Where
+# the directory holds lm.npy, each solve takes that damping.
 _RUN = r"""
-import ctypes, sys
+import ctypes, os, sys
 import numpy as np
 lib_path, d, mode, *entries = sys.argv[1:]
 lib = ctypes.CDLL(lib_path)
 vp, ci = ctypes.c_void_p, ctypes.c_int
 lib.btd_packed_floats.argtypes = [ci]
 D, L, b = (np.load(f"{d}/{k}.npy") for k in "DLb")
+lm = np.load(f"{d}/lm.npy") if os.path.exists(f"{d}/lm.npy") else None
 B, K, n = b.shape
 if mode == "misaligned":  # D one float past a 16-byte boundary: 4-byte copies
     buf = np.zeros(D.size + 4, np.float32)
@@ -64,10 +74,11 @@ if mode == "misaligned":  # D one float past a 16-byte boundary: 4-byte copies
     D = D2
 for entry in entries or ["btd_solve_f32"]:
     fn = getattr(lib, entry)
-    fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp]
+    fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp]
     x = np.full_like(b, np.nan)
     C = np.full((B, max(K - 1, 1), lib.btd_packed_floats(n)), np.nan, np.float32)
-    err = fn(D.ctypes.data, L.ctypes.data, b.ctypes.data, x.ctypes.data, C.ctypes.data, B, K, n, None)
+    err = fn(D.ctypes.data, L.ctypes.data, b.ctypes.data, x.ctypes.data, C.ctypes.data, B, K, n, None,
+             None if lm is None else lm.ctypes.data)
     assert err == 0, (entry, err)
     np.save(f"{d}/x_{entry}.npy", x)
 """
@@ -120,11 +131,27 @@ def _system(B, K, n, seed):
     return D, L, xt
 
 
-def _emu_run(lib, tmp_path, D, L, b, mode="aligned", entries=(WARP,), env=None):
+def _damping(B, seed):
+    """lm (B,) from 1e-4 to 2: the damped solves part from the undamped ones
+    far beyond ATOL."""
+    return (10.0 ** np.random.default_rng(seed).uniform(-4, 0.3, size=B)).astype(np.float32)
+
+
+def _damped_copy(D, lm):
+    """The LM loop's damped copy of D, as PyTorch computes it."""
+    Dt, lmt = torch.from_numpy(D), torch.from_numpy(lm)
+    return (Dt + torch.diag_embed(lmt[:, None, None] * torch.diagonal(Dt, dim1=-2, dim2=-1) + 1e-8)).numpy()
+
+
+def _emu_run(lib, tmp_path, D, L, b, mode="aligned", entries=(WARP,), env=None, lm=None):
     """Returns the solving subprocess and x of each entry (None when the
-    subprocess failed)."""
+    subprocess failed); with `lm` (B,), the solves are damped by it."""
     for k, a in zip("DLb", (D, L, b)):
         np.save(tmp_path / f"{k}.npy", np.ascontiguousarray(a, dtype=np.float32))
+    if lm is not None:
+        np.save(tmp_path / "lm.npy", np.ascontiguousarray(lm, dtype=np.float32))
+    elif (tmp_path / "lm.npy").exists():
+        (tmp_path / "lm.npy").unlink()
     proc = subprocess.run([sys.executable, "-c", _RUN, lib, str(tmp_path), mode, *entries],
                           capture_output=True, text=True, timeout=600, env=env)
     if proc.returncode != 0:
@@ -132,8 +159,8 @@ def _emu_run(lib, tmp_path, D, L, b, mode="aligned", entries=(WARP,), env=None):
     return proc, {e: torch.from_numpy(np.load(tmp_path / f"x_{e}.npy")) for e in entries}
 
 
-def _emu_solve(lib, tmp_path, D, L, b, mode="aligned", entries=(WARP,), env=None):
-    proc, xs = _emu_run(lib, tmp_path, D, L, b, mode, entries, env)
+def _emu_solve(lib, tmp_path, D, L, b, mode="aligned", entries=(WARP,), env=None, lm=None):
+    proc, xs = _emu_run(lib, tmp_path, D, L, b, mode, entries, env, lm)
     assert proc.returncode == 0, proc.stderr[-2000:]
     return xs if len(entries) > 1 else xs[entries[0]]
 
@@ -152,13 +179,27 @@ def _emu_solve(lib, tmp_path, D, L, b, mode="aligned", entries=(WARP,), env=None
         (3, 2, 36, "misaligned"),   # D not 16-byte aligned: 4-byte copies at bench width
     ],
 )
-def test_emulated_kernel_matches_plain(emu_lib, tmp_path, B, K, n, mode):
+@pytest.mark.parametrize("damped", [False, True], ids=["undamped", "damped"])
+def test_emulated_kernel_matches_plain(emu_lib, tmp_path, B, K, n, mode, damped):
+    """btd_kernel solves H x = b within ATOL of the plain version; damped by
+    lm, it solves the damped copy's system, within ATOL of the plain solve of
+    that copy and bit for bit its own undamped launch on the copy."""
     D, L, xt = _system(B, K, n, B * 100 + K * 10 + n)
     Dt, Lt, xtt = torch.from_numpy(D), torch.from_numpy(L), torch.from_numpy(xt)
     b = block_tridiag_matvec(Dt, Lt, xtt).contiguous()
-    x = _emu_solve(emu_lib, tmp_path, D, L, b.numpy(), mode)
-    torch.testing.assert_close(x, block_tridiag_solve(Dt, Lt, b), rtol=0, atol=ATOL)
-    torch.testing.assert_close(x, xtt, rtol=0, atol=ATOL)
+    if not damped:
+        x = _emu_solve(emu_lib, tmp_path, D, L, b.numpy(), mode)
+        torch.testing.assert_close(x, block_tridiag_solve(Dt, Lt, b), rtol=0, atol=ATOL)
+        torch.testing.assert_close(x, xtt, rtol=0, atol=ATOL)
+        return
+    lm = _damping(B, B + K + n)
+    Dd = _damped_copy(D, lm)
+    x = _emu_solve(emu_lib, tmp_path, D, L, b.numpy(), mode, lm=lm)
+    xp = block_tridiag_solve(torch.from_numpy(Dd), Lt, b)
+    torch.testing.assert_close(x, xp, rtol=0, atol=ATOL)
+    assert not torch.allclose(xp, block_tridiag_solve(Dt, Lt, b), rtol=0, atol=ATOL), "the damping moves nothing"
+    x_copy = _emu_solve(emu_lib, tmp_path, Dd, L, b.numpy(), mode)
+    assert torch.equal(x, x_copy), f"largest difference {float((x - x_copy).abs().max())}"
 
 
 def test_emulated_kernel_pivot_clamp(emu_lib, tmp_path):
@@ -209,6 +250,47 @@ def test_emulated_kernel_needs_each_cp_wait(tmp_path, line):
         assert not close, f"the kernel without the cp_wait at btd.cu:{line + 1} still agrees"
 
 
+# The lines of btd.cu that damp D_0, each with the line of the wait for its
+# copy that must come first: btd_kernel's cp_wait, the small kernel's
+# __pipeline_wait_prior (before its __syncthreads).
+_D0_DAMP = {
+    "btd_kernel": (next(i for i, line in enumerate(KERNEL_LINES) if "if (lm) { damp_diagonal(" in line), r"\bcp_wait\(\);"),
+    "btd_small_kernel": (next(i for i, line in enumerate(KERNEL_LINES) if "&& lm) damp_diagonal(" in line),
+                         r"__pipeline_wait_prior\(0\);"),
+}
+
+
+@pytest.mark.parametrize("kernel", list(_D0_DAMP))
+def test_emulated_damping_needs_its_wait(tmp_path, kernel):
+    """A copy of btd.cu that damps D_0's diagonal before the wait for D_0's
+    copy (the line moved above the wait) damps NaN or a value the copy then
+    overwrites: its damped solve must abort or part from the plain solve of
+    the damped copy, with the block's threads at once or one at a time."""
+    line, wait = _D0_DAMP[kernel]
+    at = max(i for i in range(line) if re.search(wait, KERNEL_LINES[i]))
+    assert line - at <= 2, "the damping of D_0 follows the wait for its copy"
+    mutant = list(KERNEL_LINES)
+    mutant.insert(at, mutant.pop(line))
+    (tmp_path / "emu").mkdir()
+    (tmp_path / "btd.cu").write_text("".join(mutant))
+    shutil.copy(os.path.join(EMU_DIR, "btd_emu.cpp"), tmp_path / "emu" / "btd_emu.cpp")
+    lib = _build(tmp_path / "emu" / "btd_emu.cpp", tmp_path / "libbtd_early_damp.so")
+    D, L, xt = _system(2, 4, 36, 17)
+    lm = _damping(2, 17)
+    Dt, Lt = torch.from_numpy(D), torch.from_numpy(L)
+    b = block_tridiag_matvec(Dt, Lt, torch.from_numpy(xt)).contiguous()
+    xp = block_tridiag_solve(torch.from_numpy(_damped_copy(D, lm)), Lt, b)
+    entry = WARP if kernel == "btd_kernel" else SMALL
+    run_dir = tmp_path / "run"
+    run_dir.mkdir()
+    for order in ("1", "-1", ""):
+        proc, xs = _emu_run(lib, run_dir, D, L, b.numpy(), entries=(entry,), lm=lm,
+                            env=dict(os.environ, QTOS_EMU_THREAD_ORDER=order))
+        if proc.returncode != 0 or not torch.allclose(xs[entry], xp, rtol=0, atol=ATOL):
+            return
+    pytest.fail(f"{kernel} damping D_0 before its copy is waited for still agrees")
+
+
 # ---- the small-batch kernel --------------------------------------------------
 
 
@@ -227,16 +309,26 @@ def test_emulated_kernel_needs_each_cp_wait(tmp_path, line):
         (1, 2, 5, "aligned", "-1"),
     ],
 )
-def test_small_kernel_equals_warp_kernel(emu_lib, tmp_path, B, K, n, mode, order):
+@pytest.mark.parametrize("damped", [False, True], ids=["undamped", "damped"])
+def test_small_kernel_equals_warp_kernel(emu_lib, tmp_path, B, K, n, mode, order, damped):
     """The small kernel's x is btd_kernel's bit for bit, and the plain
-    version's within ATOL."""
+    version's within ATOL.  Damped by lm, both kernels' x equal each other
+    and their undamped launches on the damped copy bit for bit."""
     D, L, xt = _system(B, K, n, 1000 + B * 100 + K * 10 + n)
     Dt, Lt = torch.from_numpy(D), torch.from_numpy(L)
     b = block_tridiag_matvec(Dt, Lt, torch.from_numpy(xt)).contiguous()
-    xs = _emu_solve(emu_lib, tmp_path, D, L, b.numpy(), mode, (WARP, SMALL),
-                    env=dict(os.environ, QTOS_EMU_THREAD_ORDER=order))
+    env = dict(os.environ, QTOS_EMU_THREAD_ORDER=order)
+    lm = _damping(B, 2000 + B + K + n) if damped else None
+    xs = _emu_solve(emu_lib, tmp_path, D, L, b.numpy(), mode, (WARP, SMALL), env=env, lm=lm)
     assert torch.equal(xs[SMALL], xs[WARP]), f"largest difference {float((xs[SMALL] - xs[WARP]).abs().max())}"
-    torch.testing.assert_close(xs[SMALL], block_tridiag_solve(Dt, Lt, b), rtol=0, atol=ATOL)
+    if not damped:
+        torch.testing.assert_close(xs[SMALL], block_tridiag_solve(Dt, Lt, b), rtol=0, atol=ATOL)
+        return
+    Dd = _damped_copy(D, lm)
+    torch.testing.assert_close(xs[SMALL], block_tridiag_solve(torch.from_numpy(Dd), Lt, b), rtol=0, atol=ATOL)
+    copy = _emu_solve(emu_lib, tmp_path, Dd, L, b.numpy(), mode, (WARP, SMALL), env=env)
+    for entry in (WARP, SMALL):
+        assert torch.equal(xs[entry], copy[entry]), f"{entry}: the damped launch is not the undamped one on the copy"
 
 
 def _emu_library(path):

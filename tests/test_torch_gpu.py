@@ -103,15 +103,16 @@ def test_kernel_pivot_clamp(cuda):
     torch.testing.assert_close(x, xp, rtol=1e-4, atol=ATOL)
 
 
-def _launch(entry, D, L, b):
+def _launch(entry, D, L, b, lm=None):
     """x from one launch of a kernel of btd.cu (`btd_solve_f32`: btd_kernel;
-    `btd_small_solve_f32`: the small-batch kernel), past the wrapper."""
+    `btd_small_solve_f32`: the small-batch kernel), past the wrapper, damped
+    by `lm` if given."""
     lib = btd._load()
     B, K, n = b.shape
     x = torch.empty_like(b)
     C = torch.empty((B, K - 1, lib.btd_packed_floats(n)), device=b.device)
     err = getattr(lib, entry)(D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(), C.data_ptr(), B, K, n,
-                              torch.cuda.current_stream().cuda_stream)
+                              torch.cuda.current_stream().cuda_stream, None if lm is None else lm.data_ptr())
     assert err == 0, f"{entry} at ({B}, {K}, {n}): CUDA error {err}"
     return x
 
@@ -171,6 +172,54 @@ def test_small_kernel_launch_error_raises(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="small-batch kernel launch failed"):
         btd_solve(D, L, b)
     assert btd_solve.launches == launches
+
+
+def _damped_copy(D, lm):
+    """The copy of D the LM loop damped before the kernel took lm."""
+    return D + torch.diag_embed(lm[:, None, None] * torch.diagonal(D, dim1=-2, dim2=-1) + 1e-8)
+
+
+@pytest.mark.parametrize("B,K,n", [(1, 41, 36), (4, 41, 36), (64, 41, 36), (1024, 41, 36)])
+def test_damped_kernel_equals_undamped_on_the_copy(cuda, B, K, n):
+    """Damped by lm, btd_solve's x is the undamped solve of the damped copy
+    bit for bit, D is left as it was and the call is counted as damped; each
+    kernel, launched past the wrapper, damped equals itself undamped on the
+    copy and the other kernel damped."""
+    D, L, b, _ = _system(B, K, n, 13, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    lm = 10.0 ** (torch.rand((B,), generator=gen, device=cuda) * 4.3 - 4.0)
+    Dd, D0 = _damped_copy(D, lm), D.clone()
+    counts = (btd_solve.launches, btd_solve.small_launches, btd_solve.damped_launches)
+    small = picks_small(B, K, n)
+    x = btd_solve(D, L, b, lm=lm)
+    assert (btd_solve.launches, btd_solve.small_launches, btd_solve.damped_launches) == (
+        counts[0] + 1, counts[1] + small, counts[2] + 1)
+    copy = btd_solve(Dd, L, b)
+    assert btd_solve.damped_launches == counts[2] + 1
+    xs = {e: (_launch(e, D, L, b, lm), _launch(e, Dd, L, b)) for e in ("btd_solve_f32", "btd_small_solve_f32")}
+    torch.cuda.synchronize()
+    assert torch.equal(D, D0)
+    assert torch.equal(x, copy), float((x - copy).abs().max())
+    for entry, (damped, undamped) in xs.items():
+        assert torch.equal(damped, undamped), (entry, float((damped - undamped).abs().max()))
+        assert torch.equal(damped, x), entry
+    torch.testing.assert_close(x, block_tridiag_solve(Dd, L, b), rtol=0, atol=ATOL)
+
+
+def test_solve_batch_counts_damped_launches(cuda):
+    """Every LM iteration of solve_batch hands its damping to the kernel:
+    one damped launch per iteration, at B = 4 on the small kernel."""
+    from qtos_torch.solver import SolverConfig, default_spec, solve_batch
+    from qtos_torch.terrain import make_terrain
+
+    terr = make_terrain(["plane", "plane"], device=cuda)
+    specs = default_spec(terr, goal_xy=(np.linspace(0.2, 0.5, 4).astype(np.float32), 0.0), K=41, device=cuda)
+    btd_solve.launches = btd_solve.small_launches = btd_solve.damped_launches = 0
+    res = solve_batch(specs, terr, SolverConfig(max_iters=5))
+    torch.cuda.synchronize()
+    iters = int(res.iters.max())
+    assert iters == 5
+    assert btd_solve.damped_launches == btd_solve.launches == btd_solve.small_launches == iters
 
 
 def test_kernel_rejects_wide_blocks(cuda):
