@@ -27,7 +27,6 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import sys
 import time
 
@@ -42,6 +41,7 @@ from qtos_torch.solver import SolverConfig, default_spec, solve_batch
 from qtos_torch.solver.spec import NV
 from qtos_torch.terrain import make_terrain
 from qtos_torch.tools.check_assemble import PEAK_F32_FLOPS, gram_flops
+from qtos_torch.tools.kit import card
 
 # bench.py's settings (tests/test_torch_bench.py reads them from its source)
 BASELINE_SOLVES_PER_S = 1.3       # TOWR/IPOPT per CPU core (BASELINE.md)
@@ -102,12 +102,9 @@ def card_line(dev: torch.device) -> str:
     if dev.type != "cuda":
         return f"# device {dev.type}"
     try:
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-                              "-i", str(dev.index)], capture_output=True, text=True, timeout=60)
-        line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
-    except (OSError, subprocess.SubprocessError, IndexError):
-        line = ""
-    return f"# {line or torch.cuda.get_device_name(dev) + ', power limit not read (nvidia-smi failed)'}"
+        return f"# {card(index=dev.index)}"
+    except RuntimeError:
+        return f"# {torch.cuda.get_device_name(dev)}, power limit not read (nvidia-smi failed)"
 
 
 def describe(t: dict, flops: int, on_card: bool) -> str:

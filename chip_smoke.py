@@ -120,6 +120,9 @@ import subprocess
 import sys
 import time
 
+from qtos_torch.ops.cuda_lib import ptxas_registers
+from qtos_torch.tools import kit
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
@@ -148,15 +151,6 @@ SHAPES = [(3, 7, 12), (2, 5, 36), (1, 9, 5), (5, 4, 6), (1, 33, 36), (20, 25, 36
 SMALL_TIMED = [(4, 41, 36), (1, 41, 36)]
 # Batches at which both BTD kernels are timed for the crossover (K=41, n=36).
 CROSSOVER_BATCHES = (1, 2, 4, 20, 64, 132, 264, 265, 396)
-
-
-def _synced(dev) -> float:
-    """The host clock once the device has drained its queue."""
-    import torch
-
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    return time.perf_counter()
 
 
 def _asm_launches() -> int:
@@ -290,11 +284,11 @@ def phase_playback(dev, card, terrain, x, specs, warmup=500, compare_ticks=500) 
         """Warm-up and playback, each one launch of the tick kernel on the
         card; (final, metrics, warm-up s, playback s, start state)."""
         _zero_tick_counts()
-        t0 = _synced(tables.device)
+        t0 = kit.synced(tables.device)
         s0 = stance_warmup(state_from_row(tables[..., 0, :], terr, params), terr, params, warmup)
-        t1 = _synced(tables.device)
+        t1 = kit.synced(tables.device)
         final, m = playback(tables, s0, terr, params)
-        t2 = _synced(tables.device)
+        t2 = kit.synced(tables.device)
         if tables.device.type == "cuda" and _tick_counts() != (1, 1):
             fail(f"phase 6: warm-up and playback launched the tick kernel {_tick_counts()} times, not (1, 1)")
         return final, m, t1 - t0, t2 - t1, s0
@@ -526,13 +520,13 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
         st = ep(s0, 0) if B == 1 else s0
         T = tab.shape[-2]
         _zero_tick_counts()
-        t1 = _synced(dev)
+        t1 = kit.synced(dev)
         fk, tk = tick_scan(tab, st, played["terrain"], params)
-        kernel_s = _synced(dev) - t1
+        kernel_s = kit.synced(dev) - t1
         launches = _tick_counts()
-        t1 = _synced(dev)
+        t1 = kit.synced(dev)
         fp, tp = _scan_ticks(tab, st, played["terrain"], params)
-        plain_s = _synced(dev) - t1
+        plain_s = kit.synced(dev) - t1
         fc, tc = _scan_ticks(tab.cpu(), map_tensors(st, cpu), terr_cpu, params)   # the yardstick of rounding
         ms = kernel_s * 1e3                 # a CPU rehearsal runs the plain loop thrice
         if dev.type == "cuda":              # main() always passes the card
@@ -540,13 +534,7 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
                 fail(f"phase 6e B={B}: the kernel launched {launches} times for one call, "
                      f"{_tick_counts()} after the plain loops")
             # the kernel's time without the host's first-call work: CUDA events over 3 calls
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(3):
-                tick_scan(tab, st, played["terrain"], params)
-            end.record()
-            torch.cuda.synchronize()
-            ms = start.elapsed_time(end) / 3
+            ms = kit.event_ms(lambda: tick_scan(tab, st, played["terrain"], params), 3)
 
         lead = tab.dim() - 2                               # the T axis of every trace
         early = _trace_spread(tk, tp, lead, COMPARE_TICKS)
@@ -633,7 +621,7 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
     # loop-carried cycles at the probed latencies (tools/tick_floor.py).
     floor_ms = floor_cycles = cycle = None
     if dev.type == "cuda":
-        cycles = tick_floor.op_cycles(tick_floor.load_probe(tick_floor.build_probe()))
+        cycles = tick_floor.op_cycles(tick_floor.PROBE.load())
         clock = tick_floor.sm_clock_mhz()
         floor_ms, floor_cycles, cycle = tick_floor.design_floor(cycles, T, clock)
         log(f"# phase 6e dependent cycles per operation (probe, {clock:g} MHz): "
@@ -669,9 +657,9 @@ def phase_planner(dev, card) -> None:
     terrain = make_terrain(tiles, device=dev)
     cfg = SolverConfig(max_iters=max_iters, tol=6e-3)
     _zero_solver_counts()
-    t1 = _synced(dev)
+    t1 = kit.synced(dev)
     fmap = feasibility_map(terrain, cfg=cfg, K=K)
-    probe_s = _synced(dev) - t1
+    probe_s = kit.synced(dev) - t1
     launches, asm_launches, small = btd_solve.launches, _asm_launches(), btd_solve.small_launches
     restore_launches = _restore_launches()
 
@@ -707,9 +695,9 @@ def phase_planner(dev, card) -> None:
 
     # The rescue pass on the probe's windows: its first scenarios that fail
     # pass 1 (phase 4's distribution converges whole, so it never enters).
-    t1 = _synced(dev)
+    t1 = kit.synced(dev)
     res2 = solve_batch(specs, terrain, cfg.replace(rescue_iters=12))
-    rescue_s = _synced(dev) - t1
+    rescue_s = kit.synced(dev) - t1
     n_rescued = n_unconverged - int((res2.status != 0).sum())
     log(f"# phase 7 rescue pass on the probe's windows (rescue_iters=12): {n_unconverged} gathered, "
         f"{n_rescued} converged by it, {rescue_s:.3f} s on {card}")
@@ -767,10 +755,10 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     times = []
     for i in range(1 + (5 if on_card else 1)):  # a warm-up, then the timed calls (one on the CPU)
         _zero_solver_counts()
-        t1 = _synced(dev)
+        t1 = kit.synced(dev)
         res, tables, _ = plan_windows_batch(rows, goals, gyaws, terrain, cfg)
         if i:
-            times.append(_synced(dev) - t1)
+            times.append(kit.synced(dev) - t1)
     replan_s = statistics.median(times)
     replan_launches, replan_asm, replan_small = btd_solve.launches, _asm_launches(), btd_solve.small_launches
     replan_restore = _restore_launches()
@@ -799,9 +787,9 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     runner = bundle.runner
     _zero_solver_counts()
     _zero_tick_counts()
-    t1 = _synced(dev)
+    t1 = kit.synced(dev)
     rep = runner.run(verbose=True)
-    wall = _synced(dev) - t1
+    wall = kit.synced(dev) - t1
     launches, runner_asm, runner_small = btd_solve.launches, _asm_launches(), btd_solve.small_launches
     runner_restore = _restore_launches()
     tick_launches = _tick_counts()
@@ -976,9 +964,9 @@ def phase_towr(dev, card, golden_table) -> dict:
         np.savetxt(golden, golden_table, delimiter=",")
         for name, d in (("card", dev), ("cpu", "cpu")):
             _zero_solver_counts()
-            t1 = _synced(dev)
+            t1 = kit.synced(dev)
             fig, res, spec = towr.measure(golden=golden, device=d)
-            t2 = _synced(dev)
+            t2 = kit.synced(dev)
             out[name] = dict(fig=fig, ms=(t2 - t1) * 1e3, iters=int(res.iters), btd=btd_solve.launches,
                              small=btd_solve.small_launches, asm=_asm_launches(), restore=_restore_launches(),
                              double_support=int((spec.schedule.contact.sum(-1) == 4).sum()))
@@ -1089,13 +1077,10 @@ def main() -> None:
     dev = torch.device("cuda")
 
     # ---- 1. card --------------------------------------------------------
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    )
-    if smi.returncode != 0:
-        fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    card = smi.stdout.strip().splitlines()[0]
+    try:
+        card = kit.card()
+    except RuntimeError as e:
+        fail(str(e))
     log(card)
     kind = torch.cuda.get_device_name(0)
     log(f"# torch {torch.__version__} cuda {torch.version.cuda} device {kind} "
@@ -1107,50 +1092,21 @@ def main() -> None:
     report = io.StringIO()
     with contextlib.redirect_stdout(report), concurrent.futures.ThreadPoolExecutor(5) as pool:
         builds = [pool.submit(fn, verbose=True)
-                  for fn in (btd_mod.build, tick_mod.build, asm_mod.build, tick_floor.build_probe, restore_mod.build)]
+                  for fn in (btd_mod.build, tick_mod.build, asm_mod.build, tick_floor.PROBE.build, restore_mod.build)]
         paths = [b.result() for b in builds]
     report = report.getvalue()
     log(report.rstrip())
 
-    def registers(kernel: str):
-        m = re.search(r"Compiling entry function '[^']*" + kernel + r"[^']*'.*?(\d+) bytes spill stores.*?"
-                      r"Used (\d+) registers", report, re.S)
-        return (int(m.group(2)), int(m.group(1))) if m else (None, None)
-
-    (regs, _), (tick_regs, tick_spills) = registers("btd_kernel"), registers("tick_kernel")
-    small_regs, small_spills = registers("btd_small_kernel")
-    asm_regs, asm_spills = registers("assemble_kernel")
+    regs, _ = ptxas_registers(report, "btd_kernel")
+    tick_regs, tick_spills = ptxas_registers(report, "tick_kernel")
+    small_regs, small_spills = ptxas_registers(report, "btd_small_kernel")
+    asm_regs, asm_spills = ptxas_registers(report, "assemble_kernel")
     log(f"# phase 2 build: {', '.join(paths)} in {time.time() - t0:.1f} s; registers per thread: "
         f"btd_kernel {regs}, btd_small_kernel {small_regs} with {small_spills} B spill stores, "
         f"tick_kernel {tick_regs} with {tick_spills} B spill stores (before the tick "
         f"kernel's redesign: {TICK_BEFORE}), assemble_kernel {asm_regs} with {asm_spills} B spill stores")
 
     # ---- 3. kernel vs plain ----------------------------------------------
-    def event_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / reps
-
-    def event_ms_calls(fn, reps):
-        """ms of each of `reps` calls after a warm-up, by CUDA events."""
-        fn()
-        torch.cuda.synchronize()
-        out = []
-        for _ in range(reps):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            torch.cuda.synchronize()
-            out.append(start.elapsed_time(end))
-        return out
-
     def cholesky_ex(A):
         """The factor alone: no check of `info`, so no wait for the host."""
         return torch.linalg.cholesky_ex(A).L
@@ -1222,7 +1178,7 @@ def main() -> None:
         """(launch, x): one launch of btd_kernel, or of the small-batch
         kernel, on inputs packed once (the output and the factors' scratch
         allocated once, no wrapper, no count), damped by `lm` if given."""
-        lib = btd_mod._load()
+        lib = btd_mod.KERNEL.load()
         B, K, n = b.shape
         x = torch.empty_like(b)
         scratch = torch.empty((B, K - 1, lib.btd_packed_floats(n)), dtype=D.dtype, device=dev)
@@ -1242,7 +1198,7 @@ def main() -> None:
         """ms per launch of one kernel alone, on inputs packed once."""
         launch, _ = packed_launcher(D, L, b, small, lm)
         launch()
-        return event_ms(launch, 20)
+        return kit.event_ms(launch, 20)
 
     def damping(B, seed):
         """lm (B,) from 1e-4 to 2 on the card."""
@@ -1309,12 +1265,12 @@ def main() -> None:
                 fail(line + f" (gates: within atol {KERNEL_ATOL} of the plain version, btd_kernel's x bit for bit)")
             del xs, xw
         if (B, K, n) == (8192, 41, 36):
-            ms = event_ms(lambda: btd_solve(D, L, b), 10)
-            damped_ms = [event_ms(lambda: btd_solve(D, L, b, lm=lm), 10) for _ in range(2)]
-            damped_ms.append(event_ms(lambda: btd_solve(D, L, b), 10))
-            plain_ms = event_ms(lambda: block_tridiag_solve(D, L, b), 1)
-            lib_calls = event_ms_calls(lambda: library_thomas(D, L, b), 3)
-            lib_ex_calls = event_ms_calls(lambda: library_thomas(D, L, b, cholesky_ex), 3)
+            ms = kit.event_ms(lambda: btd_solve(D, L, b), 10)
+            damped_ms = [kit.event_ms(lambda: btd_solve(D, L, b, lm=lm), 10) for _ in range(2)]
+            damped_ms.append(kit.event_ms(lambda: btd_solve(D, L, b), 10))
+            plain_ms = kit.event_ms(lambda: block_tridiag_solve(D, L, b), 1)
+            lib_calls = kit.event_ms_calls(lambda: library_thomas(D, L, b), 3)
+            lib_ex_calls = kit.event_ms_calls(lambda: library_thomas(D, L, b, cholesky_ex), 3)
             lib_ms, lib_ex_ms = sum(lib_calls) / 3, sum(lib_ex_calls) / 3
             lib_err = float((library_thomas(D, L, b, cholesky_ex) - xp).abs().max())
             xl = library_thomas(D, L, b)
@@ -1354,10 +1310,10 @@ def main() -> None:
                                  small_damped_ms=packed_launch_ms(D, L, b, small=True, lm=lm),
                                  small_ms_again=packed_launch_ms(D, L, b, small=True),
                                  ms_again=packed_launch_ms(D, L, b),
-                                 call_ms=event_ms(lambda: btd_solve(D, L, b), 20),
-                                 plain_ms=event_ms(lambda: block_tridiag_solve(D, L, b), 3),
-                                 library_ms=event_ms(lambda: library_thomas(D, L, b, cholesky_ex), 3),
-                                 dense_ms=event_ms(lambda: dense_solve(H, b), 5), bound_ms=bms, bound_by=bby,
+                                 call_ms=kit.event_ms(lambda: btd_solve(D, L, b), 20),
+                                 plain_ms=kit.event_ms(lambda: block_tridiag_solve(D, L, b), 3),
+                                 library_ms=kit.event_ms(lambda: library_thomas(D, L, b, cholesky_ex), 3),
+                                 dense_ms=kit.event_ms(lambda: dense_solve(H, b), 5), bound_ms=bms, bound_by=bby,
                                  small_floor_ms=floor_ms)
             del H
             r = small_rows[B]
@@ -1451,7 +1407,7 @@ def main() -> None:
     timed = {r["B"]: r for r in asm_rows if "ms" in r}
     share = max(max(r["tolerance_shares"].values()) for r in asm_rows)
     gate = max(max(r["gate_shares"].values()) for r in asm_rows)
-    occ = check_assemble.occupancy(asm_mod._load(), 41)
+    occ = check_assemble.occupancy(asm_mod.KERNEL.load(), 41)
     log(f"# phase 3b assemble_kernel on {card}: {asm_regs} registers, {asm_spills} B spill stores, "
         f"{occ['smem_bytes']} B shared memory per block and {occ['blocks_per_sm']} blocks per SM at K=41; ms per launch "
         + ", ".join(f"(B={B}, K=41) {r['ms']:.3f} (bound {r['bound_ms']:.4f} by {r['bound_by']}, "
@@ -1487,7 +1443,7 @@ def main() -> None:
         if not r["bit_for_bit"]:
             fail(line + " (gate: the kernel equals its plain version and torch.where bit for bit)")
         log(line)
-    restore_regs, restore_spills = registers("lm_restore_kernel")
+    restore_regs, restore_spills = ptxas_registers(report, "lm_restore_kernel")
     log(f"# phase 3c lm_restore_kernel on {card}: {restore_regs} registers, {restore_spills} B spill stores; host us "
         f"per call at B=4: the wrapper {restore_host['wrapper_us']:.2f}, the three torch.where calls it replaced "
         f"{restore_host['where_us']:.2f} (phase 3c done in {time.time() - t0:.1f} s)")
@@ -1549,9 +1505,9 @@ def main() -> None:
     # where the time goes at B=8192: one assembly and one solve
     x0 = initial_guess(specs, terrain, cfg)
     aux, slope = knot_aux(specs, terrain, cfg), slope_terrain(terrain, cfg.slope_probe_d)
-    asm_ms = event_ms(lambda: assemble(x0, specs, terrain, cfg, aux, slope), 3)
+    asm_ms = kit.event_ms(lambda: assemble(x0, specs, terrain, cfg, aux, slope), 3)
     Dm, Lm, gm, _ = assemble(x0, specs, terrain, cfg, aux, slope)
-    solve_ms = event_ms(lambda: btd_solve(Dm, Lm, gm), 3)
+    solve_ms = kit.event_ms(lambda: btd_solve(Dm, Lm, gm), 3)
     log(f"# phase 4 breakdown B=8192: assemble (the kernel) {asm_ms:.3f} ms, btd_solve {solve_ms:.3f} ms per "
         f"iteration")
     del Dm, Lm, gm

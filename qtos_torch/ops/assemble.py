@@ -12,10 +12,9 @@ per pass.
 
 The kernel runs one block of 8 warps per window, its work staged by kind
 (every knot's endpoint terms and family blocks once, then the Gram products
-as 4 x 4 register tiles); csrc/assemble.cu's note says how.  It is compiled
-with `nvcc` for sm_90a at first use into
-`qtos_torch/_build/` (keyed by the source's hash), with `--fmad=false` and
-without fast math, and loaded with ctypes.  Its constants (the weights and
+as 4 x 4 register tiles); csrc/assemble.cu's note says how.  It is built at
+first use by `qtos_torch.ops.cuda_lib`, with `--fmad=false` and without
+fast math, and loaded with ctypes.  Its constants (the weights and
 margins of the `SolverConfig`, the spec's dt, the SOLO12 mass, inertia and
 nominal feet, the terrain's grid) are taken from the Python objects at each
 call, in the layout the library reports (`assemble_param_layout`); its
@@ -27,30 +26,18 @@ from __future__ import annotations
 
 import ctypes
 import math
-import os
-import threading
 
 import numpy as np
 import torch
 
 from qtos_torch.models.solo12 import Solo12
-from qtos_torch.ops import tick
+from qtos_torch.ops import cuda_lib
 from qtos_torch.solver.spec import FORCE_SCALE, NV
 from qtos_torch.solver.transcription import GRAVITY_Z
 
-SOURCE = os.path.join(tick._PKG_DIR, "csrc", "assemble.cu")
+SOURCE = cuda_lib.csrc("assemble.cu")
 # no-penetration margin of `knot_normal`: h - 0.005 - p_z
 PEN_MARGIN = 0.005
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def build(verbose: bool = False, source: str = SOURCE) -> str:
-    """Compile `csrc/assemble.cu` (or another `source`) with the tick
-    kernel's flags into `qtos_torch/_build/`, if not built yet, and return the
-    library's path.  ``verbose`` adds ``-Xptxas -v`` and prints its report."""
-    return tick.build(verbose, source=source, stem="libqtos_assemble")
 
 
 def load_library(path: str):
@@ -64,18 +51,13 @@ def load_library(path: str):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = ctypes.c_char_p
     for name in ("assemble_chunk", "assemble_smem_bytes", "assemble_blocks_per_sm"):
-        if hasattr(lib, name):  # not in the first design's library
-            getattr(lib, name).argtypes = [ci]
-            getattr(lib, name).restype = ci
+        getattr(lib, name).argtypes = [ci]
+        getattr(lib, name).restype = ci
     return lib
 
 
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            _lib = load_library(build())
-    return _lib
+KERNEL = cuda_lib.Kernel(SOURCE, "libqtos_assemble", load_library, flags=("--fmad=false",))
+build = KERNEL.build
 
 
 def param_values(dt: float, terrain, cfg) -> dict:
@@ -227,7 +209,7 @@ def assemble_kernel(x, spec, terrain, cfg, aux, slope):
     if x.device.type != "cuda":
         raise ValueError(f"the assembly kernel runs on cuda (solver.assemble.assemble runs the plain version "
                          f"on cpu), not {x.device}")
-    lib = _load()
+    lib = KERNEL.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         out = run(lib, x, spec, terrain, cfg, aux, slope, stream=stream)

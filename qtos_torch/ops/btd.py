@@ -7,8 +7,8 @@ raises); on a CPU tensor it runs the plain version,
 loop's damped system, the damping added by the kernel as each diagonal block
 lands in shared memory: D is read, never written or copied.
 
-The source holds two kernels, compiled with `nvcc` for sm_90a at first use
-into `qtos_torch/_build/` (keyed by the source's hash) and loaded with
+The source holds two kernels, built at first use by `qtos_torch.ops.cuda_lib`
+with the common flags only (`-O3`, no `--fmad=false`) and loaded with
 ctypes.  `btd_kernel` solves one scenario per warp, for large batches; its
 scratch holds the factors C_0 .. C_{K-2} of each scenario, lower triangles
 packed: (B, K-1, n(n+1)/2 rounded up to a multiple of 4) floats.  The
@@ -23,86 +23,44 @@ bit.  There is no fallback: a failed launch of either raises.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
 
 import torch
 
+from qtos_torch.ops import cuda_lib
 from qtos_torch.ops.tridiag import block_tridiag_solve
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "btd.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+SOURCE = cuda_lib.csrc("btd.cu")
 MAX_N = 64
 
-_lib = None
-_lib_lock = threading.Lock()
+
+def load_library(path: str):
+    """The kernel's library at `path` (built by `build`, or the CPU build of
+    the same source in the tests) with its functions' argument types set."""
+    lib = ctypes.CDLL(path)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.btd_solve_f32, lib.btd_small_solve_f32):
+        fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp]
+        fn.restype = ci
+    lib.btd_pick_small.argtypes = [ci] * 3
+    lib.btd_pick_small.restype = ci
+    lib.btd_resident_warps.argtypes = [ci]
+    lib.btd_resident_warps.restype = ci
+    lib.btd_smem_bytes.argtypes = [ci]
+    lib.btd_smem_bytes.restype = ctypes.c_size_t
+    lib.btd_packed_floats.argtypes = [ci]
+    lib.btd_packed_floats.restype = ci
+    return lib
 
 
-def _nvcc() -> str:
-    for cand in (
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-        shutil.which("nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def build(verbose: bool = False) -> str:
-    """Compile `csrc/btd.cu` into a shared library (if not built yet) and
-    return its path.  ``verbose`` adds ``-Xptxas -v`` and prints its report."""
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"libqtos_btd_{tag}.so")
-    if os.path.exists(out) and not verbose:
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-        "-shared", "-Xcompiler", "-fPIC", "-o", tmp, SOURCE,
-    ]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)
-    return out
-
-
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp = ctypes.c_void_p
-            for fn in (lib.btd_solve_f32, lib.btd_small_solve_f32):
-                fn.argtypes = [vp, vp, vp, vp, vp, ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, vp]
-                fn.restype = ctypes.c_int
-            lib.btd_pick_small.argtypes = [ctypes.c_int] * 3
-            lib.btd_pick_small.restype = ctypes.c_int
-            lib.btd_resident_warps.argtypes = [ctypes.c_int]
-            lib.btd_resident_warps.restype = ctypes.c_int
-            lib.btd_smem_bytes.argtypes = [ctypes.c_int]
-            lib.btd_smem_bytes.restype = ctypes.c_size_t
-            lib.btd_packed_floats.argtypes = [ctypes.c_int]
-            lib.btd_packed_floats.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+KERNEL = cuda_lib.Kernel(SOURCE, "libqtos_btd", load_library)
+build = KERNEL.build
 
 
 def occupancy(n: int) -> dict:
     """The kernel's occupancy on the current CUDA device at block width n:
     resident warps (= scenarios in flight) per SM and dynamic shared memory
     per block in bytes."""
-    lib = _load()
+    lib = KERNEL.load()
     warps = lib.btd_resident_warps(n)
     if warps <= 0:
         raise RuntimeError(f"btd occupancy query failed: CUDA error {-warps}")
@@ -112,7 +70,7 @@ def occupancy(n: int) -> dict:
 def picks_small(B: int, K: int, n: int) -> bool:
     """Whether `btd_solve` at (B, K, n) on the current CUDA device launches
     the small-batch kernel (else `btd_kernel`)."""
-    pick = _load().btd_pick_small(B, K, n)
+    pick = KERNEL.load().btd_pick_small(B, K, n)
     if pick < 0:
         raise RuntimeError(f"btd kernel choice failed at ({B}, {K}, {n}): CUDA error {-pick}")
     return pick == 1
@@ -184,7 +142,7 @@ def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor,
     x = torch.empty_like(b)
     if B == 0:
         return x
-    lib = _load()
+    lib = KERNEL.load()
     with torch.cuda.device(D.device):
         small = picks_small(B, K, n)
         if small:

@@ -12,34 +12,20 @@ caller then keeps the fresh tensors themselves as the best point's system.
 On a CUDA tensor it launches the hand-written kernel once (or raises; the
 kernel takes 16-byte aligned tensors, as assembly's fresh outputs are); on a
 CPU tensor it runs the plain version, `restore_rejected_plain`.  The kernel
-is compiled with `nvcc` for sm_90a at first use into `qtos_torch/_build/`
-(keyed by the source's hash) and loaded with ctypes; it launches on
-PyTorch's current stream and reads the accept mask on the device, so the
-host waits for nothing.
+is built at first use by `qtos_torch.ops.cuda_lib`, with `--fmad=false`,
+and loaded with ctypes; it launches on PyTorch's current stream and reads
+the accept mask on the device, so the host waits for nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import threading
 
 import torch
 
-from qtos_torch.ops import tick
+from qtos_torch.ops import cuda_lib
 
-SOURCE = os.path.join(tick._PKG_DIR, "csrc", "lm_restore.cu")
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def build(verbose: bool = False, source: str = SOURCE) -> str:
-    """Compile `csrc/lm_restore.cu` (or another `source`) with the tick
-    kernel's flags into `qtos_torch/_build/`, if not built yet, and return
-    the library's path.  ``verbose`` adds ``-Xptxas -v`` and prints its
-    report."""
-    return tick.build(verbose, source=source, stem="libqtos_lm_restore")
+SOURCE = cuda_lib.csrc("lm_restore.cu")
 
 
 def load_library(path: str):
@@ -52,12 +38,8 @@ def load_library(path: str):
     return lib
 
 
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            _lib = load_library(build())
-    return _lib
+KERNEL = cuda_lib.Kernel(SOURCE, "libqtos_lm_restore", load_library, flags=("--fmad=false",))
+build = KERNEL.build
 
 
 def _check(accept, dst, kept):
@@ -133,7 +115,7 @@ def restore_rejected(accept: torch.Tensor, dst: tuple, kept: tuple | None) -> No
     if accept.device.type != "cuda":
         raise ValueError(f"restore runs on cuda or cpu, not {accept.device}")
     _check_aligned(dst, kept)
-    lib = _load()
+    lib = KERNEL.load()
     with torch.cuda.device(accept.device):
         run(lib, accept, dst, kept, torch.cuda.current_stream(accept.device).cuda_stream)
     restore_rejected.launches += int(accept.shape[0] > 0)

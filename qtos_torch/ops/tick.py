@@ -8,12 +8,12 @@ n_steps)` runs `stance_warmup`'s hold like `control.loop._hold_ticks`.  On a
 CUDA tensor each launches the hand-written kernel once (or raises); on a CPU
 tensor each runs that plain version.
 
-The kernel is compiled with `nvcc` for sm_90a at first use into
-`qtos_torch/_build/` (keyed by the source's hash), with `--fmad=false` and
-without fast math, and loaded with ctypes.  Its constants (the SOLO12
-geometry and inertia, `SimParams`, `MotorParams`, the `ControlParams`
-scalars, the terrain's grid) are taken from those Python objects at each
-call, in the layout the library reports (`tick_param_layout`).
+The kernel is built at first use by `qtos_torch.ops.cuda_lib`, with
+`--fmad=false` and without fast math, and loaded with ctypes.  Its
+constants (the SOLO12 geometry and inertia, `SimParams`, `MotorParams`, the
+`ControlParams` scalars, the terrain's grid) are taken from those Python
+objects at each call, in the layout the library reports
+(`tick_param_layout`).
 
 The kernel reads the state as one (B, 45) row per episode and writes the
 traces as one (B, T, 56) tensor; the returned state leaves and trace entries
@@ -26,21 +26,16 @@ its trace pass reads.
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import subprocess
-import threading
 
 import numpy as np
 import torch
 
 from qtos_torch.models.solo12 import _L_LOW, _L_UP, Solo12
-from qtos_torch.ops.btd import BUILD_DIR, _nvcc
+from qtos_torch.ops import cuda_lib
 from qtos_torch.sim.engine import CONTACT_DAMP_DEPTH, SimState, _constants
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "tick.cu")
+SOURCE = cuda_lib.csrc("tick.cu")
 ROW = 37
 # The state row and the trace row of the kernel: (name, first column, shape).
 STATE_LAYOUT = (("pos", 0, (3,)), ("quat", 3, (4,)), ("v", 7, (3,)), ("w", 10, (3,)),
@@ -49,43 +44,6 @@ TRACE_LAYOUT = (("com_err", 0, ()), ("ee_err", 1, ()), ("pos", 2, (3,)), ("feet"
                 ("q", 17, (12,)), ("qd", 29, (12,)), ("tau", 41, (12,)), ("eul", 53, (3,)))
 STATE_FLOATS, TRACE_FLOATS = 45, 56
 FRAMES = {"live": 0, "hybrid": 1}   # any other frame is "plan", as in `_tick`
-
-_lib = None
-_lib_lock = threading.Lock()
-
-
-def nvcc_command(src: str, out: str, verbose: bool = False) -> list:
-    """The nvcc command that builds the kernel source `src` into the shared
-    library `out`: sm_90a, `--fmad=false`, no fast math; ``verbose`` adds
-    ``-Xptxas -v`` (registers, stack frame and spills of each kernel)."""
-    cmd = [
-        _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "--fmad=false",
-        "-shared", "-Xcompiler", "-fPIC", "-o", out, src,
-    ]
-    if verbose:
-        cmd[1:1] = ["-Xptxas", "-v"]
-    return cmd
-
-
-def build(verbose: bool = False, source: str = SOURCE, stem: str = "libqtos_tick") -> str:
-    """Compile `csrc/tick.cu` (or another `source` with the same flags) into
-    a shared library named from `stem` and the source's hash, if not built
-    yet, and return its path.  ``verbose`` adds ``-Xptxas -v`` and prints its
-    report."""
-    with open(source, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"{stem}_{tag}.so")
-    if os.path.exists(out) and not verbose:
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run(nvcc_command(source, tmp, verbose), capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr, flush=True)
-    os.replace(tmp, out)
-    return out
 
 
 def load_library(path: str):
@@ -104,12 +62,8 @@ def load_library(path: str):
     return lib
 
 
-def _load():
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            _lib = load_library(build())
-    return _lib
+KERNEL = cuda_lib.Kernel(SOURCE, "libqtos_tick", load_library, flags=("--fmad=false",))
+build = KERNEL.build
 
 
 def param_values(params, terrain) -> dict:
@@ -244,7 +198,7 @@ def _cuda_launch(state0, terrain, params, **kw):
     dev = kw["table"].device if kw.get("table") is not None else state0.pos.device
     if dev.type != "cuda":
         raise ValueError(f"the tick kernel runs on cuda (and its plain version on cpu), not {dev}")
-    lib = _load()
+    lib = KERNEL.load()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         return run(lib, state0, terrain, params, stream=stream, **kw)

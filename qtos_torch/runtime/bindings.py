@@ -1,26 +1,25 @@
 """ctypes bindings to the native host runtime (`native/qtos_native.cpp`: grid
 A* and the trajectory ring buffer), built once with the host C++ compiler.
 
-The library is compiled at first use into `qtos_torch/_build/` (keyed by the
-source's hash), never next to the source.  Every entry point has a pure
-python fallback so the package works without a C++ toolchain;
-`native_available()` says which one is in use.
+The library is compiled at first use into `qtos_torch/_build/` under the
+cache name of `qtos_torch.ops.cuda_lib` (keyed by the source's hash), never
+next to the source.  Every entry point has a pure python fallback so the
+package works without a C++ toolchain; `native_available()` says which one
+is in use.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
 import subprocess
 import threading
 
 import numpy as np
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "runtime", "native", "qtos_native.cpp")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+from qtos_torch.ops import cuda_lib
+
+SOURCE = os.path.join(cuda_lib.PKG_DIR, "runtime", "native", "qtos_native.cpp")
 
 _lock = threading.Lock()
 _lib = None
@@ -29,25 +28,18 @@ _tried = False
 
 def library_path() -> str:
     """Where the built library lives (whether or not it is built yet)."""
-    with open(SOURCE, "rb") as f:
-        tag = hashlib.sha256(f.read()).hexdigest()[:16]
-    return os.path.join(BUILD_DIR, f"libqtos_native_{tag}.so")
+    return cuda_lib.cache_path(SOURCE, "libqtos_native")
 
 
 def _build(out: str) -> bool:
-    cxx = shutil.which("g++") or shutil.which("c++")
+    cxx = cuda_lib.host_cxx()
     if cxx is None:
         return False
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
     try:
-        subprocess.run(
-            [cxx, "-O3", "-shared", "-fPIC", "-std=c++17", SOURCE, "-o", tmp],
-            check=True, capture_output=True, timeout=120,
-        )
-        os.replace(tmp, out)
+        cuda_lib.compile_to(out, lambda tmp: [cxx, "-O3", "-shared", "-fPIC", "-std=c++17", SOURCE, "-o", tmp],
+                            timeout=120)
         return True
-    except (OSError, subprocess.SubprocessError):
+    except (OSError, RuntimeError, subprocess.SubprocessError):
         return False
 
 

@@ -32,9 +32,8 @@ larger of the two.
 from __future__ import annotations
 
 import re
-import subprocess
 
-from qtos_torch.tools.tick_floor import function_body
+from qtos_torch.tools.kit import card, function_body
 
 SMS = 132                       # H100 SXM
 F32_LANES_PER_SM = 128          # float32 instructions per SM per clock
@@ -116,6 +115,4 @@ def design_floor(B: int, K: int, clock_mhz: float) -> dict:
 
 def max_sm_clock_mhz() -> float:
     """The card's highest SM clock as `nvidia-smi` reports it."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=60).stdout
-    return float(out.split()[0])
+    return float(card(("clocks.max.sm",), units=False).split()[0])

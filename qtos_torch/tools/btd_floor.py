@@ -40,6 +40,8 @@ from __future__ import annotations
 import math
 import re
 
+from qtos_torch.tools.kit import function_body
+
 # The calls in btd.cu that stand for an operation of the probe.
 CALLS = {"rsqrtf": "rsqrt", "__shfl_sync": "shfl", "__syncthreads": "bar", "bar_sync": "bar",
          "bar_arrive": "bar"}
@@ -89,23 +91,6 @@ def design_floor(cycles: dict, K: int, n: int, clock_mhz: float) -> tuple:
               for stage, ops in stage_ops(n).items()}
     total = sum(stages.values())
     return total / (clock_mhz * 1e3), total, stages
-
-
-def function_body(text: str, name: str) -> str:
-    """The body of the function `name` of the CUDA source `text`, without its
-    comments."""
-    m = re.search(r"^(?:__global__|__device__)[^;{]*?\b" + re.escape(name) + r"\(", text, re.M)
-    if m is None:
-        m = re.search(r"^" + re.escape(name) + r"\(", text, re.M)   # a kernel whose name starts its line
-    if m is None:
-        raise KeyError(f"no function {name} in the source")
-    start = re.compile(r"\)\s*\{").search(text, m.end()).end() - 1  # past a default argument's braces
-    depth = 0
-    for i in range(start, len(text)):
-        depth += {"{": 1, "}": -1}.get(text[i], 0)
-        if depth == 0:
-            return re.sub(r"//[^\n]*", "", text[start:i + 1])
-    raise ValueError(f"the body of {name} does not end")
 
 
 def source_calls(text: str, name: str) -> dict:

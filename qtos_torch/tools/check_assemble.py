@@ -16,14 +16,14 @@ the shapes the main path gives the kernel: the kernel's launches on inputs
 packed once (`ops.assemble.prepare`), and the wrapper's whole call, whose
 packing on the host sets the time at small B.  One JSON line at the end.
 
-With `--versions` it builds each version of `assemble.cu` (PATH, or a copy of
-it without the lines matching REGEX, or with each match replaced by TEXT, as
-`qtos_torch.tools.check_tick` takes them; PATH may name an earlier version),
-prints each one's registers and spills (and, where the version reports them,
-its shared memory and blocks per SM at K=41), whether its outputs equal the
-first version's bit for bit at every shape of `SHAPES` on both iterates, and
-its ms per launch at (4, 41), (1024, 41) and (8192, 41), timed in turns (v1,
-v2, ..., v2, v1; CUDA events over 10 launches on inputs packed once).  An ablation's answers are
+With `--versions` it builds each version of `assemble.cu` (given as
+`qtos_torch.tools.kit` takes them: PATH, or an ablated copy of it; each must
+have the current C entry points of `assemble.cu`) with the kernel's own
+flags, prints each one's registers and spills, its shared memory and blocks
+per SM at K=41, whether its outputs equal the first version's bit for bit
+at every shape of `SHAPES` on both iterates, and its ms per launch at (4,
+41), (1024, 41) and (8192, 41), timed in turns (v1, v2, ..., v2, v1; CUDA
+events over 10 launches on inputs packed once).  An ablation's answers are
 wrong; its time says what the removed work costs.
 
 Tolerance: atol=rtol=2e-4 (tests/test_torch_assemble.py's) plus ROUNDING =
@@ -40,7 +40,6 @@ import argparse
 import contextlib
 import io
 import json
-import re
 import tempfile
 
 import numpy as np
@@ -48,13 +47,13 @@ import torch
 
 from qtos_torch.device import resolve_device
 from qtos_torch.ops import assemble as asm
+from qtos_torch.ops.cuda_lib import ptxas_registers
 from qtos_torch.solver.assemble import assemble_plain
 from qtos_torch.solver.spec import NV, SolverConfig, default_spec
 from qtos_torch.solver.transcription import initial_guess, knot_aux
 from qtos_torch.terrain import make_terrain
 from qtos_torch.terrain.heightfield import height_at, slope_terrain
-from qtos_torch.tools import assemble_floor
-from qtos_torch.tools.profile_tick import _card
+from qtos_torch.tools import assemble_floor, kit
 
 ATOL = RTOL = 2e-4
 ROUNDING = 1e-5
@@ -158,18 +157,6 @@ def bound(p: dict) -> dict:
                 bytes=nbytes, flops=flops)
 
 
-def event_ms(fn, reps: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def rounding_scales(ref):
     """Per entry of (D, L, g) a bound on the sum of the magnitudes of the
     terms that make it: D = J^T J is a Gram matrix, so the terms of D_ij sum
@@ -213,21 +200,14 @@ def compare(kind: str, B: int, K: int, device, timed: bool = False) -> dict:
                ok=finite and row["bitwise_repeatable"] and max(gated.values()) <= 1.0)
     del out, ref
     if timed:
-        launch, _ = asm.prepare(asm._load(), p["x"], p["specs"], p["terrain"], p["cfg"], p["aux"], p["slope"])
+        launch, _ = asm.prepare(asm.KERNEL.load(), p["x"], p["specs"], p["terrain"], p["cfg"], p["aux"], p["slope"])
         stream = torch.cuda.current_stream(device).cuda_stream
-        row.update(ms=event_ms(lambda: launch(stream), 10), call_ms=event_ms(lambda: kernel(p), 10),
-                   plain_ms=event_ms(lambda: plain(p), 2), **bound(p),
+        row.update(ms=kit.event_ms(lambda: launch(stream), 10), call_ms=kit.event_ms(lambda: kernel(p), 10),
+                   plain_ms=kit.event_ms(lambda: plain(p), 2), **bound(p),
                    **assemble_floor.design_floor(B, K, assemble_floor.max_sm_clock_mhz()))
     asm.assemble_kernel.launches = before
     torch.cuda.empty_cache()
     return row
-
-
-def ptxas_registers(report: str, kernel_name: str = "assemble_kernel"):
-    """(registers, spill store bytes) of one kernel in nvcc's -Xptxas -v report."""
-    m = re.search(r"Compiling entry function '[^']*" + kernel_name + r"[^']*'.*?(\d+) bytes spill stores.*?"
-                  r"Used (\d+) registers", report, re.S)
-    return (int(m.group(2)), int(m.group(1))) if m else (None, None)
 
 
 def describe(row: dict) -> str:
@@ -249,16 +229,13 @@ def describe(row: dict) -> str:
 
 def versions(specs: list, device) -> list:
     """`--versions`: build, compare with the first and time each version."""
-    from qtos_torch.tools.check_tick import _sources
-
     out_dir = tempfile.mkdtemp(prefix="asm_versions_")
     libs, rows = {}, []
-    for name, path in _sources(specs, out_dir).items():
-        buf = io.StringIO()
-        with contextlib.redirect_stdout(buf):
-            lib = asm.load_library(asm.build(verbose=True, source=path))
-        regs, spills = ptxas_registers(buf.getvalue())
-        libs[name] = lib
+    for name, path in kit.sources(specs, out_dir).items():
+        lib_path, report = kit.build_version(asm.KERNEL, name, path, out_dir)
+        print("\n".join(report), flush=True)
+        regs, spills = ptxas_registers("\n".join(report), "assemble_kernel")
+        libs[name] = asm.load_library(lib_path)
         rows.append(dict(name=name, source=path, registers=regs, spill_stores=spills))
     stream = torch.cuda.current_stream(device).cuda_stream
     order = list(libs) + list(libs)[::-1]
@@ -285,7 +262,7 @@ def versions(specs: list, device) -> list:
         times = {}
         for name in order:
             launch = asm.prepare(libs[name], *args)[0]
-            times.setdefault(name, []).append(event_ms(lambda: launch(stream), 10))
+            times.setdefault(name, []).append(kit.event_ms(lambda: launch(stream), 10))
             del launch
         for row in rows:
             row[f"ms_{B}x{K}"] = times[row["name"]]
@@ -302,9 +279,7 @@ def versions(specs: list, device) -> list:
 
 def occupancy(lib, K: int) -> dict:
     """Shared memory per block and blocks per SM of the kernel in `lib` for
-    windows of K knots, where the library reports them (None where not)."""
-    if not hasattr(lib, "assemble_blocks_per_sm"):
-        return dict(smem_bytes=None, blocks_per_sm=None)
+    windows of K knots."""
     return dict(smem_bytes=lib.assemble_smem_bytes(K), blocks_per_sm=lib.assemble_blocks_per_sm(K))
 
 
@@ -317,7 +292,7 @@ def main(argv=None) -> int:
     dev = resolve_device(args.device)
     if dev.type != "cuda":
         raise SystemExit("check_assemble needs a CUDA card: the kernel has no CPU mode")
-    print(_card(), flush=True)
+    print(kit.card(("name", "power.limit", "clocks.sm")), flush=True)
     if args.versions:
         rows = versions(args.versions, dev)
         print(json.dumps({"check_assemble_versions": rows}), flush=True)
@@ -325,9 +300,9 @@ def main(argv=None) -> int:
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         asm.build(verbose=True)
-    regs, spills = ptxas_registers(buf.getvalue())
+    regs, spills = ptxas_registers(buf.getvalue(), "assemble_kernel")
     print(buf.getvalue().rstrip(), flush=True)
-    occ = occupancy(asm._load(), 41)
+    occ = occupancy(asm.KERNEL.load(), 41)
     print(f"# assemble_kernel: {regs} registers, {spills} B spill stores; K=41: {occ['smem_bytes']} B shared memory "
           f"per block, {occ['blocks_per_sm']} blocks per SM", flush=True)
     rows = []

@@ -20,7 +20,6 @@ limit and exits non-zero without a card or when a check fails.
 
 from __future__ import annotations
 
-import subprocess
 import sys
 import time
 
@@ -29,6 +28,7 @@ import torch
 from qtos_torch.ops import lm_restore
 from qtos_torch.ops.lm_restore import restore_rejected, restore_rejected_plain
 from qtos_torch.solver.spec import NV
+from qtos_torch.tools.kit import card, event_ms
 
 PEAK_BYTES_S = 3.35e12
 SHAPES = ((8192, 41), (4, 41), (1, 41))
@@ -55,18 +55,6 @@ def bound_ms(accept, fresh, kept) -> float:
     per_window = sum(t[0].numel() for t in fresh) * 4
     rejected = int((~accept).sum())
     return 1e3 * (rejected * per_window * (1 if kept is None else 2) + accept.numel()) / PEAK_BYTES_S
-
-
-def event_ms(fn, reps):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def where_three(accept, fresh, kept):
@@ -114,7 +102,7 @@ def check_all(dev) -> tuple:
     """(rows, host): one `check_shape` row per shape and case (each says
     whether the kernel was bit for bit), and the host us per call of the
     wrapper and of the three `torch.where` calls at B=4."""
-    lib = lm_restore._load()
+    lib = lm_restore.KERNEL.load()
     rows = [check_shape(lib, B, K, case, dev) for B, K in SHAPES for case in CASES]
     torch.cuda.empty_cache()
     accept, fresh, kept = problem(4, 41, "mixed", dev)
@@ -129,9 +117,11 @@ def main() -> int:
         print("check_restore needs a CUDA card", file=sys.stderr)
         return 2
     dev = torch.device("cuda")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True)
-    print(f"# card: {smi.stdout.strip() or torch.cuda.get_device_name(0)}", flush=True)
+    try:
+        name = card()
+    except RuntimeError:
+        name = torch.cuda.get_device_name(0)
+    print(f"# card: {name}", flush=True)
     t0 = time.time()
     lm_restore.build(verbose=True)
     print(f"# built in {time.time() - t0:.1f} s", flush=True)

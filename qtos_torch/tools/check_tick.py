@@ -4,14 +4,11 @@ shorter than `chip_smoke.py`.
 
     python3 -m qtos_torch.tools.check_tick [TICKS] [NAME=PATH[!REGEX[!TEXT]] ...]
 
-With no version it checks `new=qtos_torch/csrc/tick.cu`.  Each PATH is a
-version of `tick.cu` with its C entry points (`tick_run` with or without the
-scratch argument), built with the flags of `qtos_torch.ops.tick.build`.  With
-`!REGEX` the version is a copy of PATH without the lines that match REGEX,
-and with `!REGEX!TEXT` one in which each match is replaced by TEXT: an
-ablation, whose answers are wrong but whose time says what the removed work
-costs.  PATH may also be the NAME of an earlier version, whose edited copy is
-then edited again.  For example
+With no version it checks `new=qtos_torch/csrc/tick.cu`.  Each version is
+given as `qtos_torch.tools.kit` takes them (PATH, or an ablated copy of it)
+and must have the current C entry points of `tick.cu` (`tick_run` with its
+scratch argument, `tick_scratch_floats`); it is built with the kernel's own
+flags (`qtos_torch.ops.tick.KERNEL`).  For example
 
     python3 -m qtos_torch.tools.check_tick new=qtos_torch/csrc/tick.cu \
         notrace='old.cu!out\[0\] = norm3'
@@ -39,12 +36,7 @@ build or a launch fails.
 from __future__ import annotations
 
 import concurrent.futures
-import ctypes
 import dataclasses
-import os
-import re
-import shutil
-import subprocess
 import sys
 import tempfile
 import time
@@ -56,7 +48,7 @@ from qtos_torch.control.loop import _hold_ticks, _scan_ticks, state_from_row
 from qtos_torch.ops import tick
 from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve_batch
 from qtos_torch.terrain import make_terrain
-from qtos_torch.tools import tick_floor
+from qtos_torch.tools import kit, tick_floor
 
 STATE_LEAVES = [name for name, _, _ in tick.STATE_LAYOUT]
 # The trace entries the chain writes; the trace pass writes the others.
@@ -66,86 +58,6 @@ CHAIN_ENTRIES = ("pos", "q", "qd", "tau")
 def _episodes(state, n):
     return dataclasses.replace(state, **{f.name: getattr(state, f.name)[:n].contiguous()
                                          for f in dataclasses.fields(state)})
-
-
-def _sources(specs: list[str], out_dir: str) -> dict:
-    """NAME -> path of each version's source, edited copies written to
-    `out_dir`."""
-    paths = {}
-    for spec in specs:
-        name, _, rest = spec.partition("=")
-        src, *edit = rest.split("!", 2)
-        src = paths.get(src, src)
-        if edit:
-            pattern = re.compile(edit[0])
-            with open(src) as f:
-                lines = f.readlines()
-            if len(edit) == 1:
-                lines = [line for line in lines if not pattern.search(line)]
-            else:
-                lines = [pattern.sub(lambda _: edit[1], line) for line in lines]
-            src = os.path.join(out_dir, f"{name}.cu")
-            with open(src, "w") as f:
-                f.writelines(lines)
-        paths[name] = src
-    return paths
-
-
-def _cuobjdump():
-    for cand in (shutil.which("cuobjdump"), "/usr/local/cuda/bin/cuobjdump"):
-        if cand and os.path.exists(cand):
-            return cand
-    return None
-
-
-def _build(name: str, src: str, out_dir: str) -> tuple:
-    """Builds one version; returns (library path, report lines)."""
-    out = os.path.join(out_dir, f"lib_{name}.so")
-    proc = subprocess.run(tick.nvcc_command(src, out, verbose=True), capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"{name}: nvcc failed\n{proc.stderr}")
-    report = [f"{name}: " + line.strip() for line in (proc.stdout + proc.stderr).splitlines()
-              if re.search(r"Compiling entry|registers|stack frame", line)]
-    tool = _cuobjdump()
-    if tool:
-        sass = subprocess.run([tool, "-sass", out], capture_output=True, text=True).stdout
-        for part in sass.split("Function : ")[1:]:
-            fn = part.split("\n", 1)[0].strip()
-            ldl = len(re.findall(r"\bLDL\b", part))
-            stl = len(re.findall(r"\bSTL\b", part))
-            instr = len(re.findall(r"/\*[0-9a-f]{4,}\*/", part))
-            report.append(f"{name}: SASS {fn}: {instr} instructions, {ldl} LDL, {stl} STL")
-    else:
-        report.append(f"{name}: no cuobjdump in the toolkit: local-memory instructions not counted")
-    return out, report
-
-
-class _NoScratch:
-    """A library of a version whose `tick_run` takes no scratch argument,
-    with the interface of `tick.load_library`'s (the scratch is dropped)."""
-
-    def __init__(self, path: str):
-        self._lib = ctypes.CDLL(path)
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        self._lib.tick_run.argtypes = [vp, ci, ci, ci, vp, vp, vp, vp, ci, ci, vp, vp, ci, ci, ci, vp]
-        self._lib.tick_run.restype = ci
-        self._lib.tick_param_layout.restype = ctypes.c_char_p
-
-    def tick_param_layout(self):
-        return self._lib.tick_param_layout()
-
-    @staticmethod
-    def tick_scratch_floats():
-        return 0
-
-    def tick_run(self, *args):
-        return self._lib.tick_run(*args[:12], *args[13:])
-
-
-def _load(path: str):
-    if hasattr(ctypes.CDLL(path), "tick_scratch_floats"):
-        return tick.load_library(path)
-    return _NoScratch(path)
 
 
 def _play(lib, table, state, terrain, params, scratch=None):
@@ -191,24 +103,22 @@ def main(argv) -> int:
     args = argv[1:]
     ticks = int(args.pop(0)) if args and args[0].isdigit() else 200
     specs = args or [f"new={tick.SOURCE}"]
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    print(kit.card(), flush=True)
 
     with tempfile.TemporaryDirectory(prefix="check_tick_") as tmp:
-        srcs = _sources(specs, tmp)
+        srcs = kit.sources(specs, tmp)
         t0 = time.time()
         with concurrent.futures.ThreadPoolExecutor(len(srcs) + 1) as pool:   # one nvcc per source, all at once
-            probe = pool.submit(tick_floor.build_probe)
-            built = {name: pool.submit(_build, name, src, tmp) for name, src in srcs.items()}
+            probe = pool.submit(tick_floor.PROBE.build)
+            built = {name: pool.submit(kit.build_version, tick.KERNEL, name, src, tmp) for name, src in srcs.items()}
             built = {name: f.result() for name, f in built.items()}
             probe = tick_floor.load_probe(probe.result())
         for _, report in built.values():
             print("\n".join(report), flush=True)
         print(f"build {time.time() - t0:.1f} s", flush=True)
-        libs = {name: _load(path) for name, (path, _) in built.items()}
+        libs = {name: tick.load_library(path) for name, (path, _) in built.items()}
         _check(libs, probe, ticks)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
-                         capture_output=True, text=True, timeout=60).stdout.strip(), flush=True)
+    print(kit.card(("name", "power.limit", "clocks.sm")), flush=True)
     return 0
 
 
@@ -253,15 +163,11 @@ def _check(libs: dict, probe, ticks: int) -> None:
         for name in names + names[::-1]:
             lib = libs[name]
             scr = scratch[lib.tick_scratch_floats()]
-            _play(lib, tab, st, terrain, params, scr)
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            for _ in range(3):
+
+            def call():
                 _, last[name] = _play(lib, tab, st, terrain, params, scr)
-            end.record()
-            torch.cuda.synchronize()
-            times[name].append(round(start.elapsed_time(end) / 3, 3))
+
+            times[name].append(round(kit.event_ms(call, 3), 3))
         print(f"B={n} T={T} ms per call in turns: {times}; us per tick: "
               + ", ".join(f"{k} {[round(v / T * 1e3, 3) for v in vs]}" for k, vs in times.items())
               + f"; the chain's entries ({', '.join(CHAIN_ENTRIES)}) of the last timed call equal {names[0]}'s: "

@@ -38,7 +38,6 @@ import contextlib
 import importlib
 import json
 import math
-import time
 from collections import Counter
 
 import torch
@@ -46,17 +45,11 @@ import torch
 from qtos_torch.device import resolve_device
 from qtos_torch.solver import SolverConfig, default_spec, solve_batch
 from qtos_torch.terrain import make_terrain
-from qtos_torch.tools.profile_tick import _card, _CountOps
+from qtos_torch.tools.kit import CountOps, card, synced
 
 NOT_MEASURED = "not measured"
 # the module, not the function `qtos_torch.solver.solve` that shadows it
 solve_mod = importlib.import_module("qtos_torch.solver.solve")
-
-
-def _synced(dev) -> float:
-    if dev.type == "cuda":
-        torch.cuda.synchronize()
-    return time.perf_counter()
 
 
 # the program's root span of a `solve_batch` call, and this tool's range
@@ -138,11 +131,11 @@ def profile_once(B: int, K: int = 41, device=None) -> dict:
     cfg = SolverConfig(max_iters=3, rescue_iters=12)
     specs = default_spec(terrain, goal_xy=(torch.linspace(0.3, 0.8, B, device=dev), 0.0), K=K, device=dev)
     res = solve_batch(specs, terrain, cfg)                                # warm-up, builds the kernel
-    t0 = _synced(dev)
+    t0 = synced(dev)
     res = solve_batch(specs, terrain, cfg)
-    wall = _synced(dev) - t0
+    wall = synced(dev) - t0
     iters = int(res.iters.max())
-    with _CountOps() as counter:
+    with CountOps() as counter:
         solve_batch(specs, terrain, cfg)
     out = dict(B=B, K=K, device=str(dev), wall_s=wall, iterations=iters,
                converged=int((res.status == 0).sum()), aten_ops_per_iteration=sum(counter.ops.values()) / iters)
@@ -213,7 +206,7 @@ def main(argv=None) -> int:
     args = p.parse_args(argv)
     dev = resolve_device(args.device)
     if dev.type == "cuda":
-        print(_card(), flush=True)
+        print(card(("name", "power.limit", "clocks.sm")), flush=True)
     outs = []
     for B in args.batch:
         outs.append(profile_once(B, args.K, dev))

@@ -25,37 +25,17 @@ card and exits non-zero without one.
 
 from __future__ import annotations
 
-import subprocess
 import sys
-import time
 from collections import Counter
 
 import torch
-from torch.utils._python_dispatch import TorchDispatchMode
 
 from qtos_torch.control import ControlParams
 from qtos_torch.control.loop import _hold_ticks, _scan_ticks, state_from_row
 from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve_batch
 from qtos_torch.solver.spec import index_spec
 from qtos_torch.terrain import make_terrain
-
-
-class _CountOps(TorchDispatchMode):
-    def __init__(self):
-        super().__init__()
-        self.ops = Counter()
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        self.ops[str(func)] += 1
-        return func(*args, **(kwargs or {}))
-
-
-def _timed(fn):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
+from qtos_torch.tools.kit import CountOps, card, synced
 
 
 def _device_events(prof):
@@ -67,20 +47,13 @@ def _device_events(prof):
     return out
 
 
-def _card() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip()
-
-
 def main(argv) -> int:
     if not torch.cuda.is_available():
         print("profile_tick: needs a CUDA card", file=sys.stderr)
         return 1
     ticks = int(argv[1]) if len(argv) > 1 else 50
     dev = torch.device("cuda")
-    print(_card(), flush=True)
+    print(card(("name", "power.limit", "clocks.sm")), flush=True)
 
     terrain = make_terrain(["plane"] * 3)
     params = ControlParams()
@@ -95,16 +68,20 @@ def main(argv) -> int:
         tables = all_tables if B > 1 else all_tables[0]
         s0 = _hold_ticks(state_from_row(tables[..., 0, :], terrain, params), terrain, params, 20)
         if B == 1:
-            with _CountOps() as counter:
+            with CountOps() as counter:
                 _scan_ticks(tables[:10], s0, terrain, params)
             print(f"aten operations dispatched: {sum(counter.ops.values()) / 10:.1f} per tick (B=1, 10 ticks "
                   f"incl. the trace stacking); most frequent: {counter.ops.most_common(8)}", flush=True)
         _scan_ticks(tables[..., :5, :], s0, terrain, params)
-        _, plain = _timed(lambda: _scan_ticks(tables, s0, terrain, params))
+        t0 = synced(dev)
+        _scan_ticks(tables, s0, terrain, params)
+        plain = synced(dev) - t0
         with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
         ) as prof:
-            _, wall = _timed(lambda: _scan_ticks(tables, s0, terrain, params))
+            t0 = synced(dev)
+            _scan_ticks(tables, s0, terrain, params)
+            wall = synced(dev) - t0
         events = _device_events(prof)
         busy_us = sum(t for _, t in events)
         if not events or busy_us == 0.0:
@@ -120,7 +97,7 @@ def main(argv) -> int:
               f"{busy_ms:.3f} ms per tick = {busy_ms / ms_tick:.1%} of the {ms_tick:.3f} ms per tick of the same "
               f"call without the profiler ({wall / ticks * 1e3:.3f} ms per tick under it; {ticks} ticks); "
               f"top by device time: {top}", flush=True)
-    print(_card(), flush=True)
+    print(card(("name", "power.limit", "clocks.sm")), flush=True)
     return 0
 
 

@@ -19,8 +19,9 @@ removes one fails there until the paths are counted again.  The simple
 operations (adds, products, comparisons, selects, conversions) are counted
 by hand only.
 
-The probe, `op_cycles.cu` beside this module, is built with the kernel's own
-nvcc flags into `qtos_torch/_build/`; `op_cycles` runs it on the card.
+The probe, `op_cycles.cu` beside this module, is declared here (`PROBE`)
+with the kernel's own nvcc flags and built into `qtos_torch/_build/`;
+`op_cycles` runs it on the card.
 """
 
 from __future__ import annotations
@@ -28,9 +29,11 @@ from __future__ import annotations
 import ctypes
 import os
 import re
-import subprocess
 
-from qtos_torch.ops import tick
+import torch
+
+from qtos_torch.ops import cuda_lib, tick
+from qtos_torch.tools.kit import card, function_body
 
 PROBE_SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "op_cycles.cu")
 # The operations of the probe, in its order.
@@ -110,21 +113,6 @@ SOURCE_CALLS = {
 }
 
 
-def function_body(text: str, name: str) -> str:
-    """The body of the device function `name` in the CUDA source `text`,
-    without its comments."""
-    m = re.search(r"^DEV\b[^;{]*?\b" + re.escape(name) + r"\(", text, re.M)
-    if m is None:
-        raise KeyError(f"no device function {name} in the source")
-    start = text.index("{", m.end())
-    depth = 0
-    for i in range(start, len(text)):
-        depth += {"{": 1, "}": -1}.get(text[i], 0)
-        if depth == 0:
-            return re.sub(r"//[^\n]*", "", text[start:i + 1])
-    raise ValueError(f"the body of {name} does not end")
-
-
 def source_calls(text: str, name: str) -> dict:
     """The calls of `CALLS` in the device function `name` of `text`, by the
     operation each stands for."""
@@ -157,11 +145,6 @@ def design_floor(cycles: dict, T: int, clock_mhz: float) -> tuple:
     return T * means[name] / (clock_mhz * 1e3), means[name], name
 
 
-def build_probe(verbose: bool = False) -> str:
-    """Compile the probe (if not built yet) and return its library's path."""
-    return tick.build(verbose, source=PROBE_SOURCE, stem="libqtos_op_cycles")
-
-
 def load_probe(path: str):
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
@@ -170,11 +153,12 @@ def load_probe(path: str):
     return lib
 
 
+PROBE = cuda_lib.Kernel(PROBE_SOURCE, "libqtos_op_cycles", load_probe, flags=tick.KERNEL.flags)
+
+
 def op_cycles(lib, reps: int = 4096) -> dict:
     """Clock cycles of one dependent repetition of each operation in `OPS`,
     measured on the card by the probe's library `lib`."""
-    import torch
-
     out = torch.zeros(64, device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
     cycles = {}
@@ -189,6 +173,4 @@ def op_cycles(lib, reps: int = 4096) -> dict:
 
 def sm_clock_mhz() -> float:
     """The SM clock as `nvidia-smi` reads it now."""
-    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
-                         capture_output=True, text=True, timeout=60).stdout
-    return float(out.split()[0])
+    return float(card(("clocks.sm",), units=False).split()[0])

@@ -20,7 +20,6 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -57,18 +56,14 @@ def device_info(dev) -> dict:
     a card, its power limit as nvidia-smi reports it."""
     import torch
 
+    from qtos_torch.tools.kit import card
+
     if dev.type != "cuda":
         return {"device": str(dev), "device_name": "cpu", "power_limit": None}
     try:
-        smi = subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader",
-             "-i", str(dev.index or 0)],
-            capture_output=True, text=True, timeout=60,
-        )
-        line = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else ""
-    except (OSError, subprocess.SubprocessError, IndexError):
-        line = ""
-    limit = line.split(",", 1)[1].strip() if "," in line else None
+        limit = card(("power.limit",), index=dev.index or 0)
+    except RuntimeError:
+        limit = None
     return {"device": str(dev), "device_name": torch.cuda.get_device_name(dev), "power_limit": limit}
 
 

@@ -55,6 +55,7 @@ from qtos_tpu.solver import default_spec as j_default_spec
 from qtos_tpu.solver.solve import _assemble
 from qtos_tpu.terrain import make_terrain as j_make_terrain
 
+from helpers import emu
 from qtos_torch.convert import config_from_reference, spec_from_reference
 from qtos_torch.ops import assemble as asm
 from qtos_torch.solver import SolverConfig, default_spec, solve_batch
@@ -143,27 +144,9 @@ FIRST_DESIGN_DIGESTS = {
 }
 
 
-def _cxx():
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a host C++ compiler to build the kernel's source for the CPU")
-    return cxx
-
-
-def _compile(emu_cpp, out, defines=(), include=EMU_DIR, opt="-O2"):
-    """Builds `emu_cpp` (which includes ../assemble.cu) against the stand-in in
-    `include` into the library `out`; returns its path."""
-    subprocess.run(
-        [_cxx(), "-std=c++17", opt, "-ffp-contract=off", "-pthread", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-         *defines, "-I", include, "-o", str(out), emu_cpp],
-        check=True, capture_output=True, text=True, timeout=300,
-    )
-    return str(out)
-
-
 def _build(src_dir, out, defines=()):
     """Builds `src_dir`/emu/assemble_emu.cpp against this stand-in into `out` and loads it."""
-    return asm.load_library(_compile(os.path.join(src_dir, "emu", "assemble_emu.cpp"), out, defines))
+    return asm.load_library(emu.build(asm.KERNEL, os.path.join(src_dir, "emu", "assemble_emu.cpp"), out, defines))
 
 
 @pytest.fixture(scope="module")
@@ -175,7 +158,7 @@ def lib(tmp_path_factory):
 def chunked_lib_path(tmp_path_factory):
     """The source built with chunks of at most MAX_CHUNK knots."""
     out = tmp_path_factory.mktemp("assemble_emu_chunked") / "libassemble_emu_chunked.so"
-    return _compile(os.path.join(EMU_DIR, "assemble_emu.cpp"), out, [f"-DASM_MAX_CHUNK={MAX_CHUNK}"])
+    return emu.build(asm.KERNEL, os.path.join(EMU_DIR, "assemble_emu.cpp"), out, [f"-DASM_MAX_CHUNK={MAX_CHUNK}"])
 
 
 SHAPES = [(3, 13), (5, 9), (5, 2), (2, 17), (2, 45)]
@@ -488,8 +471,8 @@ def test_chunks_and_shared_memory(lib, chunked_lib_path):
 def _design_mutant(tmp_path, src):
     """The chunked build of the kernel source `src` (at -O1: it only has to
     build and run quickly); returns its path."""
-    return _compile(_mutant_source(tmp_path, src), tmp_path / "libassemble_mutant.so",
-                    [f"-DASM_MAX_CHUNK={MAX_CHUNK}"], opt="-O1")
+    return emu.build(asm.KERNEL, _mutant_source(tmp_path, src), tmp_path / "libassemble_mutant.so",
+                     [f"-DASM_MAX_CHUNK={MAX_CHUNK}"], opt="-O1")
 
 
 @pytest.mark.parametrize("mutant", list(DESIGN_MUTANTS))
@@ -543,7 +526,8 @@ if __name__ == "__main__":
     args = ap.parse_args()
     os.makedirs(os.path.dirname(INPUTS), exist_ok=True)
     _record_inputs(INPUTS)
-    emu = os.path.join(args.record, "qtos_torch", "csrc", "emu")
+    emu_dir = os.path.join(args.record, "qtos_torch", "csrc", "emu")
     with tempfile.TemporaryDirectory() as d:
-        path = _compile(os.path.join(emu, "assemble_emu.cpp"), os.path.join(d, "lib.so"), include=emu)
+        path = emu.build(asm.KERNEL, os.path.join(emu_dir, "assemble_emu.cpp"), os.path.join(d, "lib.so"),
+                         include=emu_dir)
         print(json.dumps({case: _emu_digests(path, INPUTS, case) for case in CASES}, indent=4))

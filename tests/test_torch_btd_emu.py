@@ -48,6 +48,8 @@ import numpy as np
 import pytest
 import torch
 
+from helpers import emu
+from qtos_torch.ops import btd
 from qtos_torch.ops.tridiag import block_tridiag_matvec, block_tridiag_solve
 
 ATOL = 5e-4
@@ -103,23 +105,10 @@ SMALL_PER_SM = int(re.search(r"constexpr int kSmallPerSm = (\d+);", "".join(KERN
 EMU_SMS, EMU_SMEM = 2, 232448  # the stand-in's card (emu/cuda_runtime.h)
 
 
-def _build(cpp, out):
-    """Builds the stand-in's entry `cpp` (which includes ../btd.cu) into `out`."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a host C++ compiler to build the kernel's source for the CPU")
-    subprocess.run(
-        [cxx, "-std=c++17", "-O2", "-pthread", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-         "-I", EMU_DIR, "-o", str(out), str(cpp)],
-        check=True, capture_output=True, text=True, timeout=300,
-    )
-    return str(out)
-
-
 @pytest.fixture(scope="module")
 def emu_lib(tmp_path_factory):
     out = tmp_path_factory.mktemp("btd_emu") / "libbtd_emu.so"
-    return _build(os.path.join(EMU_DIR, "btd_emu.cpp"), out)
+    return emu.build(btd.KERNEL, os.path.join(EMU_DIR, "btd_emu.cpp"), out)
 
 
 def _system(B, K, n, seed):
@@ -237,7 +226,7 @@ def test_emulated_kernel_needs_each_cp_wait(tmp_path, line):
     (tmp_path / "emu").mkdir()
     (tmp_path / "btd.cu").write_text("".join(mutant))
     shutil.copy(os.path.join(EMU_DIR, "btd_emu.cpp"), tmp_path / "emu" / "btd_emu.cpp")
-    lib = _build(tmp_path / "emu" / "btd_emu.cpp", tmp_path / "libbtd_mutant.so")
+    lib = emu.build(btd.KERNEL, tmp_path / "emu" / "btd_emu.cpp", tmp_path / "libbtd_mutant.so")
 
     D, L, xt = _system(9, 3, 36, 7)
     Dt, Lt = torch.from_numpy(D), torch.from_numpy(L)
@@ -274,7 +263,7 @@ def test_emulated_damping_needs_its_wait(tmp_path, kernel):
     (tmp_path / "emu").mkdir()
     (tmp_path / "btd.cu").write_text("".join(mutant))
     shutil.copy(os.path.join(EMU_DIR, "btd_emu.cpp"), tmp_path / "emu" / "btd_emu.cpp")
-    lib = _build(tmp_path / "emu" / "btd_emu.cpp", tmp_path / "libbtd_early_damp.so")
+    lib = emu.build(btd.KERNEL, tmp_path / "emu" / "btd_emu.cpp", tmp_path / "libbtd_early_damp.so")
     D, L, xt = _system(2, 4, 36, 17)
     lm = _damping(2, 17)
     Dt, Lt = torch.from_numpy(D), torch.from_numpy(L)
@@ -381,7 +370,7 @@ def test_small_kernel_reads_stay_in_shared_memory(tmp_path):
     (tmp_path / "emu").mkdir()
     (tmp_path / "btd.cu").write_text(src.replace(clamp, "const int c0 = i0;"))
     shutil.copy(os.path.join(EMU_DIR, "btd_emu.cpp"), tmp_path / "emu" / "btd_emu.cpp")
-    lib = _build(tmp_path / "emu" / "btd_emu.cpp", tmp_path / "libbtd_past.so")
+    lib = emu.build(btd.KERNEL, tmp_path / "emu" / "btd_emu.cpp", tmp_path / "libbtd_past.so")
     D, L, xt = _system(2, 11, 36, 13)
     b = block_tridiag_matvec(torch.from_numpy(D), torch.from_numpy(L), torch.from_numpy(xt)).contiguous()
     run_dir = tmp_path / "run"
@@ -406,7 +395,7 @@ def drop_lib(tmp_path_factory):
     (d / "emu").mkdir()
     (d / "btd.cu").write_text(head + "".join(lines))
     shutil.copy(os.path.join(EMU_DIR, "btd_emu.cpp"), d / "emu" / "btd_emu.cpp")
-    return _build(d / "emu" / "btd_emu.cpp", d / "libbtd_drop.so")
+    return emu.build(btd.KERNEL, d / "emu" / "btd_emu.cpp", d / "libbtd_drop.so")
 
 
 def _small_agrees(lib, tmp_path, drop, order):

@@ -107,7 +107,7 @@ def _launch(entry, D, L, b, lm=None):
     """x from one launch of a kernel of btd.cu (`btd_solve_f32`: btd_kernel;
     `btd_small_solve_f32`: the small-batch kernel), past the wrapper, damped
     by `lm` if given."""
-    lib = btd._load()
+    lib = btd.KERNEL.load()
     B, K, n = b.shape
     x = torch.empty_like(b)
     C = torch.empty((B, K - 1, lib.btd_packed_floats(n)), device=b.device)

@@ -1,5 +1,7 @@
 """Import hygiene of the port: qtos_torch, chip_smoke and bench_torch import
-neither JAX, flax nor qtos_tpu."""
+neither JAX, flax nor qtos_tpu; the kernels' wrappers reach their build
+through `qtos_torch.ops.cuda_lib` alone, and no card tool takes another
+tool's private names."""
 
 import ast
 import os
@@ -31,6 +33,7 @@ PORT_MODULES = [
     "qtos_torch.ops.assemble",
     "qtos_torch.ops.batch_linalg",
     "qtos_torch.ops.btd",
+    "qtos_torch.ops.cuda_lib",
     "qtos_torch.ops.lm_restore",
     "qtos_torch.ops.rotations",
     "qtos_torch.ops.splines",
@@ -64,6 +67,7 @@ PORT_MODULES = [
     "qtos_torch.tools.check_tick",
     "qtos_torch.tools.compare_btd",
     "qtos_torch.tools.crossover",
+    "qtos_torch.tools.kit",
     "qtos_torch.tools.profile_solve",
     "qtos_torch.tools.profile_tick",
     "qtos_torch.tools.tick_floor",
@@ -96,19 +100,23 @@ def test_import_leaves_jax_out(module):
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
-@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
-def test_sources_do_not_import_jax(path):
+def _imports(path):
+    """(module, imported names) of every import statement of the file."""
     with open(path) as f:
         tree = ast.parse(f.read(), filename=path)
+    out = []
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
-            names = [a.name for a in node.names]
+            out += [(a.name, ()) for a in node.names]
         elif isinstance(node, ast.ImportFrom):
-            names = [node.module or ""]
-        else:
-            continue
-        for name in names:
-            assert name.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {name}"
+            out.append((node.module or "", tuple(a.name for a in node.names)))
+    return out
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: os.path.relpath(p, REPO))
+def test_sources_do_not_import_jax(path):
+    for module, _ in _imports(path):
+        assert module.split(".")[0] not in FORBIDDEN, f"{path} imports {module}"
 
 
 def test_module_list_covers_the_package():
@@ -149,3 +157,24 @@ def test_towr_deviation_script_leaves_jax_out(tmp_path):
                            str(golden)], cwd=str(tmp_path), env=dict(os.environ, PYTHONPATH=""),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+@pytest.mark.parametrize("wrapper,other", [("tick", "btd"), ("assemble", "tick"), ("lm_restore", "tick")])
+def test_kernel_wrappers_build_through_cuda_lib_alone(wrapper, other):
+    """A wrapper finds its compiler in `cuda_lib`, not in another kernel's
+    wrapper (assembly and the restore would otherwise import the simulator
+    through the tick's)."""
+    imports = _imports(os.path.join(REPO, "qtos_torch", "ops", f"{wrapper}.py"))
+    reached = {mod for mod, _ in imports} | {f"{mod}.{name}" for mod, names in imports for name in names}
+    assert f"qtos_torch.ops.{other}" not in reached and "qtos_torch.ops.cuda_lib" in reached
+
+
+TOOLS = sorted(f[:-3] for f in os.listdir(os.path.join(REPO, "qtos_torch", "tools"))
+               if f.endswith(".py") and f != "__init__.py")
+
+
+@pytest.mark.parametrize("tool", TOOLS)
+def test_tools_take_no_private_name_of_another_tool(tool):
+    for mod, names in _imports(os.path.join(REPO, "qtos_torch", "tools", f"{tool}.py")):
+        if mod.startswith("qtos_torch.tools.") and mod != f"qtos_torch.tools.{tool}":
+            assert not [n for n in names if n.startswith("_")], f"{tool} imports {names} from {mod}"

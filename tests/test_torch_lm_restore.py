@@ -16,13 +16,12 @@ This file imports neither JAX nor qtos_tpu: tests/test_torch_gpu.py imports
 
 import importlib
 import os
-import shutil
-import subprocess
 
 import numpy as np
 import pytest
 import torch
 
+from helpers import emu
 from qtos_torch.ops import lm_restore
 from qtos_torch.ops.btd import btd_solve
 from qtos_torch.ops.lm_restore import restore_rejected, restore_rejected_plain
@@ -152,14 +151,8 @@ def test_plain_restore_is_where(B, K, case):
 
 @pytest.fixture(scope="module")
 def emu_lib(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a host C++ compiler to build the kernel's source for the CPU")
     out = tmp_path_factory.mktemp("lm_restore_emu") / "liblm_restore_emu.so"
-    subprocess.run([cxx, "-std=c++17", "-O2", "-pthread", "-shared", "-fPIC", "-Wno-unknown-pragmas",
-                    "-I", EMU_DIR, "-o", str(out), os.path.join(EMU_DIR, "lm_restore_emu.cpp")],
-                   check=True, capture_output=True, text=True, timeout=300)
-    return lm_restore.load_library(str(out))
+    return lm_restore.load_library(emu.build(lm_restore.KERNEL, os.path.join(EMU_DIR, "lm_restore_emu.cpp"), out))
 
 
 @pytest.mark.parametrize("case", CASES)

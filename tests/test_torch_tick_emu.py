@@ -26,7 +26,6 @@ The kernel's speed and its build by nvcc are checked on the card
 import os
 import re
 import shutil
-import subprocess
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +38,7 @@ from qtos_tpu.control import playback as j_playback
 from qtos_tpu.sim import SimState as JSimState
 from qtos_tpu.terrain import make_terrain as j_make_terrain
 
+from helpers import emu
 from qtos_torch.control import ControlParams
 from qtos_torch.control.loop import _hold_ticks, _metrics, _scan_ticks, gait_control_params, state_from_row
 from qtos_torch.convert import control_params_from_reference, terrain_from_reference
@@ -64,15 +64,7 @@ PLAN_FREEZE = re.compile(r"min\(t, n_valid\[b0 \+ i / T\]\)")
 
 def _build(src_dir, out):
     """Builds `src_dir`/emu/tick_emu.cpp (which includes ../tick.cu) into `out`."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a host C++ compiler to build the kernel's source for the CPU")
-    subprocess.run(
-        [cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-pthread", "-shared", "-fPIC",
-         "-Wno-unknown-pragmas", "-I", EMU_DIR, "-o", str(out), os.path.join(src_dir, "emu", "tick_emu.cpp")],
-        check=True, capture_output=True, text=True, timeout=300,
-    )
-    return tick.load_library(str(out))
+    return tick.load_library(emu.build(tick.KERNEL, os.path.join(src_dir, "emu", "tick_emu.cpp"), out))
 
 
 @pytest.fixture(scope="module")
@@ -268,17 +260,10 @@ def test_op_probe_runs_every_operation(tmp_path):
     (`qtos_torch/tools/op_cycles.cu`, its own library) launches each
     operation and leaves a count and a finite value (times only mean
     something on the card)."""
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("needs a host C++ compiler to build the probe's source for the CPU")
     src = tmp_path / "op_cycles_emu.cpp"
     src.write_text('#define EMU_TYPED_LAUNCH_ONLY\n#include "cuda_runtime.h"\nfloat* emu_smem_base = nullptr;\n'
                    f'#include "{tick_floor.PROBE_SOURCE}"\n')
-    out = tmp_path / "libop_cycles_emu.so"
-    subprocess.run([cxx, "-std=c++17", "-O2", "-ffp-contract=off", "-pthread", "-shared", "-fPIC",
-                    "-Wno-unknown-pragmas", "-I", EMU_DIR, "-o", str(out), str(src)],
-                   check=True, capture_output=True, text=True, timeout=300)
-    probe = tick_floor.load_probe(str(out))
+    probe = tick_floor.load_probe(emu.build(tick_floor.PROBE, src, tmp_path / "libop_cycles_emu.so"))
     buf = torch.zeros(64)
     for op in range(len(tick_floor.OPS)):
         assert probe.op_cycles(op, 16, buf.data_ptr(), None) == 0
