@@ -182,21 +182,41 @@ def _zero_solver_counts():
 def _warp_kernel_only():
     """btd_solve on btd_kernel at every batch while inside: a path's results
     by the small-batch kernel are held to btd_kernel's with it (a device of
-    this script's, not an option of the port)."""
+    this script's, not an option of the port).  The replans inside start
+    from an empty graph cache, so they run the patched path and do not
+    replay a graph captured on the small kernel."""
+    from qtos_torch.control import replan
+    from qtos_torch.control.graphs import GraphCache
     from qtos_torch.ops import btd
 
-    picks = btd.picks_small
+    picks, graphs = btd.picks_small, replan._GRAPHS
     btd.picks_small = lambda B, K, n: False
+    replan._GRAPHS = GraphCache(graphs.size)
     try:
         yield
     finally:
-        btd.picks_small = picks
+        btd.picks_small, replan._GRAPHS = picks, graphs
 
 
 def _zero_tick_counts():
     from qtos_torch.ops.tick import tick_hold, tick_scan
 
     tick_scan.launches = tick_hold.launches = 0
+
+
+def _replan_inputs(terrain, k, dev) -> tuple:
+    """(rows, goals, goal yaws) of phase 8a's replan: k standing start rows on
+    `terrain` and goals 0.55, 0.50, ... m ahead of them."""
+    import torch
+
+    from qtos_torch.solver.spec import RobotState
+
+    st = RobotState.standing((torch.zeros(k, device=dev), torch.zeros(k, device=dev)), terrain=terrain, device=dev)
+    zeros = torch.zeros((k, 12), device=dev)
+    rows = torch.cat([zeros[:, :1], st.r, st.eul, st.feet.reshape(k, 12), st.v, st.omega, zeros], dim=-1)
+    goals = st.r + torch.stack([0.55 - 0.05 * torch.arange(k, device=dev),
+                                torch.zeros(k, device=dev), torch.zeros(k, device=dev)], dim=-1)
+    return rows, goals, torch.zeros(k, device=dev)
 
 
 def count_device_launches() -> None:
@@ -208,14 +228,21 @@ def count_device_launches() -> None:
     one `solve_batch` call on those windows (the bench distribution at B=8),
     with the device launches of `assemble_kernel` and of the BTD solve's
     kernels (`btd_kernel`, `btd_small_kernel`, which takes B=8) in its
-    trace beside the wrappers' counts.  (In
+    trace beside the wrappers' counts; and one replayed `plan_windows_batch`
+    call at phase 8a's shape (exp_1, after an eager call and a capture),
+    with the device launches of the BTD, assembly and LM restore kernels in
+    its trace beside what the replay added to the wrappers' counts, which is
+    what its capture counted.  (In
     the smoke's own process, after phase 4's profile, later traces held no
     device events at all; a fresh process records them.)"""
     import torch
 
+    from qtos_torch.builder import build
     from qtos_torch.control.loop import gait_control_params, playback, playback_recorded, stance_warmup, state_from_row
+    from qtos_torch.control.replan import plan_windows_batch
     from qtos_torch.ops.assemble import assemble_kernel
     from qtos_torch.ops.btd import btd_solve
+    from qtos_torch.ops.lm_restore import restore_rejected
     from qtos_torch.ops.tick import tick_hold, tick_scan
     from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve_batch
     from qtos_torch.terrain import make_terrain
@@ -253,6 +280,26 @@ def count_device_launches() -> None:
                               wrapper=assemble_kernel.launches, btd_device=sum("btd_kernel" in n for n in names),
                               small_device=sum("btd_small_kernel" in n for n in names),
                               btd_wrapper=btd_solve.launches, small_wrapper=btd_solve.small_launches)
+    bundle = build("exp_1", device=dev)
+    rcfg, rterrain = bundle.runner.cfg, bundle.terrain
+    args = (*_replan_inputs(rterrain, rcfg.n_candidates, dev), rterrain, rcfg)
+    plan_windows_batch(*args)                             # the key's first call: eager
+    plan_windows_batch(*args)                             # its second: captured, then replayed
+    replays = plan_windows_batch.replays
+    btd_solve.launches = btd_solve.small_launches = assemble_kernel.launches = restore_rejected.launches = 0
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        plan_windows_batch(*args)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    out["replan"] = dict(replayed=plan_windows_batch.replays - replays, k=rcfg.n_candidates, K=rcfg.K,
+                         iters=rcfg.solver.max_iters, events=len(names),
+                         btd_device=sum("btd_kernel" in n for n in names),
+                         small_device=sum("btd_small_kernel" in n for n in names),
+                         asm_device=sum("assemble_kernel" in n for n in names),
+                         restore_device=sum("lm_restore_kernel" in n for n in names),
+                         btd_wrapper=btd_solve.launches, small_wrapper=btd_solve.small_launches,
+                         asm_wrapper=assemble_kernel.launches, restore_wrapper=restore_rejected.launches)
     print(json.dumps(out), flush=True)
 
 
@@ -560,8 +607,9 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
     # Device launches per call of each entry point, from a profiler trace
     # of one call each (in a process of its own: `count_device_launches`):
     # the wrapper's count says how often it launched, the trace what the
-    # card ran.
-    device_launches = asm_device_launches = None
+    # card ran.  A replayed replan's counts are its capture's, so only its
+    # trace shows which kernels the graph runs.
+    device_launches = asm_device_launches = replay_device_launches = None
     if dev.type == "cuda":
         t1 = time.time()
         child = subprocess.run([sys.executable, os.path.abspath(__file__), "--device-launches"],
@@ -570,6 +618,7 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
             fail(f"phase 6e: the device-launch count failed:\n{child.stderr[-3000:]}")
         counted = json.loads(child.stdout.strip().splitlines()[-1])
         solve = counted.pop("solve_batch")
+        replay = counted.pop("replan")
         line = (f"# phase 6e device launches of assemble_kernel in one solve_batch call (bench distribution, B=8, "
                 f"torch.profiler trace, the same process): {solve['device']} (wrapper {solve['wrapper']}), "
                 f"btd_kernel {solve['btd_device']} and btd_small_kernel {solve['small_device']} (wrapper "
@@ -581,6 +630,21 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
                         "wrappers' counts, the BTD solve's on the kernel the wrapper counted)")
         log(line)
         asm_device_launches = solve["device"]
+        line = (f"# phase 6e device launches in one replayed plan_windows_batch call (exp_1, B={replay['k']}, "
+                f"K={replay['K']}, max_iters={replay['iters']}, after an eager call and a capture; replays "
+                f"{replay['replayed']}): btd_small_kernel {replay['small_device']}, btd_kernel "
+                f"{replay['btd_device']}, assemble_kernel {replay['asm_device']}, lm_restore_kernel "
+                f"{replay['restore_device']} (the wrappers' counts: btd {replay['btd_wrapper']}, of them the "
+                f"small kernel's {replay['small_wrapper']}, assembly {replay['asm_wrapper']}, LM restore "
+                f"{replay['restore_wrapper']}), {replay['events']} device events")
+        if not (replay["replayed"] == 1 and replay["btd_device"] == 0
+                and replay["small_device"] == replay["small_wrapper"] == replay["btd_wrapper"]
+                == replay["asm_device"] == replay["asm_wrapper"] == replay["restore_device"]
+                == replay["restore_wrapper"] == replay["iters"]):
+            fail(line + " (gate: a replay; per LM iteration one BTD solve on the small-batch kernel, one "
+                        "assembly and one LM restore on the device, and the wrappers' counts equal to them)")
+        log(line)
+        replay_device_launches = replay["small_device"]
         line = (f"# phase 6e device launches of tick_kernel per call (torch.profiler trace of one call each, B=8, "
                 f"a process of its own, {time.time() - t1:.1f} s): "
                 + ", ".join(f"{k} {v['device']} (wrapper {v['wrapper']}, {v['events']} device events)"
@@ -638,7 +702,8 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
                 floor_ms=floor_ms, floor_cycles_per_tick=floor_cycles, floor_cycle=cycle,
                 device_launches_per_call=None if device_launches is None else device_launches["playback"],
                 device_launches_per_hold=None if device_launches is None else device_launches["stance_warmup"],
-                asm_device_launches_per_solve=asm_device_launches)
+                asm_device_launches_per_solve=asm_device_launches,
+                small_device_launches_per_replay=replay_device_launches)
 
 
 def phase_planner(dev, card) -> None:
@@ -732,7 +797,6 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     from qtos_torch.control.replan import SIM_LEAVES, RunnerConfig, plan_windows_batch
     from qtos_torch.ops.btd import btd_solve
     from qtos_torch.runtime import native_available
-    from qtos_torch.solver.spec import RobotState
 
     exp = "exp_1"
     on_card = dev.type == "cuda"              # main() always passes the card
@@ -745,34 +809,40 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     bundle = build(exp, goal_xy=goal_xy, runner_cfg=make_cfg(), device=dev)
     cfg, terrain = bundle.runner.cfg, bundle.terrain
     k = cfg.n_candidates
-    st = RobotState.standing((torch.zeros(k, device=dev), torch.zeros(k, device=dev)),
-                             terrain=terrain, device=dev)
-    zeros = torch.zeros((k, 12), device=dev)
-    rows = torch.cat([zeros[:, :1], st.r, st.eul, st.feet.reshape(k, 12), st.v, st.omega, zeros], dim=-1)
-    goals = st.r + torch.stack([0.55 - 0.05 * torch.arange(k, device=dev),
-                                torch.zeros(k, device=dev), torch.zeros(k, device=dev)], dim=-1)
-    gyaws = torch.zeros(k, device=dev)
-    times = []
-    for i in range(1 + (5 if on_card else 1)):  # a warm-up, then the timed calls (one on the CPU)
+    rows, goals, gyaws = _replan_inputs(terrain, k, dev)
+    times, counts = [], []
+    graphs0 = (plan_windows_batch.captures, plan_windows_batch.replays)
+    # A warm-up, then the timed calls (one on the CPU).  On the card the
+    # warm-up is the key's first call, which runs eagerly; the first timed
+    # call captures the graph and replays it (its time is the capture's
+    # cost), and the others replay.
+    for i in range(1 + (5 if on_card else 1)):
         _zero_solver_counts()
         t1 = kit.synced(dev)
         res, tables, _ = plan_windows_batch(rows, goals, gyaws, terrain, cfg)
         if i:
             times.append(kit.synced(dev) - t1)
+        counts.append((btd_solve.launches, _asm_launches(), btd_solve.small_launches, _restore_launches()))
     replan_s = statistics.median(times)
-    replan_launches, replan_asm, replan_small = btd_solve.launches, _asm_launches(), btd_solve.small_launches
-    replan_restore = _restore_launches()
+    captures, replays = (n - n0 for n, n0 in zip((plan_windows_batch.captures, plan_windows_batch.replays), graphs0))
+    # The eager call's counts are the kernels' own launches; a replay's are
+    # what its capture counted, and phase 6e's trace of a replay holds them
+    # to the device's.
+    replan_launches, replan_asm, replan_small, replan_restore = counts[0]
     n_conv = int((res.status == 0).sum())
     line = (f"# phase 8a replan (plan_windows_batch, B={k}, K={cfg.K}, max_iters={cfg.solver.max_iters}): "
             f"{replan_s * 1e3:.1f} ms on {card} (median of {len(times)} calls, {min(times) * 1e3:.1f} to "
-            f"{max(times) * 1e3:.1f}), btd launches {replan_launches} (of them the small-batch "
-            f"kernel's {replan_small}), assembly launches {replan_asm}, LM restore launches {replan_restore}, "
-            f"{n_conv}/{k} converged, "
+            f"{max(times) * 1e3:.1f}, the first of them {times[0] * 1e3:.1f}; graphs captured {captures}, calls "
+            f"replayed {replays}), the eager call's "
+            f"btd launches {replan_launches} (of them the small-batch kernel's {replan_small}), assembly launches "
+            f"{replan_asm}, LM restore launches {replan_restore}; the replayed calls' counts (their capture's) "
+            f"{sorted(set(counts[1:]))}; {n_conv}/{k} converged, "
             f"tables {tuple(tables.shape)}; the kernel against its plain version at "
-            f"({k}, {cfg.K}, 36) is phase 3's row of that shape")
-    if on_card and not replan_launches == replan_asm == replan_restore == replan_small == cfg.solver.max_iters:
-        fail(line + f": expected {cfg.solver.max_iters} launches of each, the BTD solve's all of the small-batch "
-                    f"kernel")
+            f"({k}, {cfg.K}, 36) is phase 3's row of that shape, a replay's device launches phase 6e's trace")
+    if on_card and not (replan_launches == replan_asm == replan_restore == replan_small == cfg.solver.max_iters
+                        and (captures, replays) == (1, len(times)) and set(counts) == {counts[0]}):
+        fail(line + f": expected an eager call, then a capture and {len(times)} replays, each counting "
+                    f"{cfg.solver.max_iters} launches of each kernel, the BTD solve's all of the small-batch kernel")
     with _warp_kernel_only():
         res_w, tables_w, _ = plan_windows_batch(rows, goals, gyaws, terrain, cfg)
     same = torch.equal(res.x, res_w.x) and torch.equal(tables, tables_w) and torch.equal(res.status, res_w.status)
@@ -787,9 +857,12 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
     runner = bundle.runner
     _zero_solver_counts()
     _zero_tick_counts()
+    graphs0 = (plan_windows_batch.captures, plan_windows_batch.replays)
     t1 = kit.synced(dev)
     rep = runner.run(verbose=True)
     wall = kit.synced(dev) - t1
+    walk_captures, walk_replays = (n - n0 for n, n0 in
+                                   zip((plan_windows_batch.captures, plan_windows_batch.replays), graphs0))
     launches, runner_asm, runner_small = btd_solve.launches, _asm_launches(), btd_solve.small_launches
     runner_restore = _restore_launches()
     tick_launches = _tick_counts()
@@ -805,8 +878,9 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
             f"{rep.final_pos[2]:.4f}), avg_com_err_per_s {rep.avg_com_err_per_s:.2f}, "
             f"btd launches {launches} (= {cfg.solver.max_iters} x {rep.windows} solves"
             f"{' + escalations' if runner.escalations else ''}; of them the small-batch kernel's {runner_small}), "
-            f"assembly launches {runner_asm}, LM restore launches {runner_restore}, "
-            f"tick kernel launches (playback, hold) "
+            f"assembly launches {runner_asm}, LM restore launches {runner_restore} (graphs captured "
+            f"{walk_captures}, replans replayed {walk_replays}: a replay counts its capture's launches, which "
+            f"phase 6e's trace holds to the device's), tick kernel launches (playback, hold) "
             f"{tick_launches} for {chunks} executed chunks and 1 warm-up; wall {wall:.2f} s on {card} = "
             f"{wall / loops:.2f} s per window over {loops} windows of the loop, of which replans "
             f"{plan_s:.2f} s in all (8a's {replan_s * 1e3:.1f} ms each) and warm-up + execution the rest: "
@@ -1579,6 +1653,7 @@ def main() -> None:
         launches=runner_launches["small_replan"],
         launches_runner=runner_launches["small_runner"],
         launches_towr=towr_launches["small"],
+        device_launches_per_replay=tick_row.pop("small_device_launches_per_replay"),
         max_abs_err=small_err,
         ms=r4["small_ms"],
         plain_ms=r4["plain_ms"],

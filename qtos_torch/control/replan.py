@@ -27,6 +27,7 @@ failed windows.
 
 from __future__ import annotations
 
+import functools
 import os
 import time
 from dataclasses import dataclass, field
@@ -42,6 +43,7 @@ from qtos_torch.control.loop import (
     stance_warmup,
     state_from_row,
 )
+from qtos_torch.control.graphs import GraphCache
 from qtos_torch.device import resolve_device
 from qtos_torch.models.solo12 import Solo12
 from qtos_torch.ops import btd
@@ -279,6 +281,23 @@ def _plan_batch_core(rows, goals_r, goals_yaw, t0s, x0, drift3, dyaw, terrain,
     return res, tables, contacts
 
 
+# The card's replans as CUDA graphs, by `graph_key` (`plan_windows_batch`).
+_GRAPHS = GraphCache(16)
+
+
+def graph_key(inputs: tuple, terrain: Terrain, scfg: SolverConfig, K: int, duration: float, gait: str) -> tuple:
+    """What a replan captured as a CUDA graph depends on besides the contents
+    of its `inputs` (`_plan_batch_core`'s tensors, None where not given): each
+    input's device, dtype and shape (so k, K, NV and whether x0 is given), the
+    solver settings, the window, the gait, and the terrain by its grid's
+    identity, address, shape and geometry (the graph reads the grid at its
+    address)."""
+    h = terrain.height
+    ground = (id(h), h.data_ptr(), h.device, h.dtype, tuple(h.shape), terrain.resolution, tuple(terrain.origin))
+    shapes = tuple(None if t is None else (t.device, t.dtype, tuple(t.shape)) for t in inputs)
+    return shapes, scfg, K, duration, gait, ground
+
+
 def plan_windows_batch(rows, goals_r, goals_yaw, terrain: Terrain, cfg: RunnerConfig,
                        t0s=None, x0=None, solver_cfg: SolverConfig | None = None,
                        drift3=None, dyaw=None):
@@ -288,6 +307,14 @@ def plan_windows_batch(rows, goals_r, goals_yaw, terrain: Terrain, cfg: RunnerCo
     This is the runner's planning primitive: `RecedingHorizonRunner` calls it
     every replan with the stitch-target alternatives.
 
+    On a CUDA device the call is one CUDA graph per `graph_key`: the first
+    call with a key runs eagerly, the second captures `_plan_batch_core` and
+    replays it, every later one replays (`control.graphs`), with the same
+    answers bit for bit.  `plan_windows_batch.captures` and `.replays` count
+    them; a replayed call records one `qtos::replan.replay` span under a
+    profiler and none of the stages', which the host no longer runs.  On the
+    CPU it runs eagerly.
+
     Args:
       rows: (k, 37) candidate start rows, on the terrain's device.
       goals_r: (k, 3); goals_yaw: (k,).
@@ -296,22 +323,37 @@ def plan_windows_batch(rows, goals_r, goals_yaw, terrain: Terrain, cfg: RunnerCo
       solver_cfg: overrides cfg.solver (e.g. escalation iterations).
       drift3: (3,) shift of the start states; dyaw: () their yaw rotation.
     Returns (SolveResult, tables (k, T, 37), contacts (k, T, 4)) — all
-    tensors on that device; nothing here reads one back to the host.
+    tensors on that device, the caller's own; nothing here reads one back
+    to the host.
     """
-    with annotate("qtos::replan", rows.shape[0]):
-        scfg = solver_cfg if solver_cfg is not None else cfg.solver
+    k = rows.shape[0]
+    with annotate("qtos::replan", k):
+        scfg = (solver_cfg if solver_cfg is not None else cfg.solver).replace(rescue_iters=0)
         f32 = dict(dtype=rows.dtype, device=rows.device)
         if t0s is None:
-            t0s = torch.zeros(rows.shape[0], **f32)
+            t0s = torch.zeros(k, **f32)
         if drift3 is None:
             drift3 = torch.zeros(3, **f32)
         if dyaw is None:
             dyaw = torch.zeros((), **f32)
-        return _plan_batch_core(
-            rows, goals_r, goals_yaw, t0s, x0, drift3, dyaw, terrain,
-            scfg=scfg.replace(rescue_iters=0), K=cfg.K,
-            duration=cfg.window_duration, gait=cfg.gait,
-        )
+        inputs = (rows, goals_r, goals_yaw, t0s, x0, drift3, dyaw)
+        core = functools.partial(_plan_batch_core, terrain=terrain, scfg=scfg, K=cfg.K,
+                                 duration=cfg.window_duration, gait=cfg.gait)
+        if rows.device.type != "cuda":
+            return core(*inputs)
+        key = graph_key(inputs, terrain, scfg, cfg.K, cfg.window_duration, cfg.gait)
+        graph, captured = _GRAPHS.graph(key, core, inputs, keep=terrain)
+        if graph is None:
+            return core(*inputs)
+        plan_windows_batch.captures += captured
+        with annotate("qtos::replan.replay", k):
+            out = graph.replay(inputs)
+        plan_windows_batch.replays += 1
+        return out
+
+
+plan_windows_batch.captures = 0
+plan_windows_batch.replays = 0
 
 
 def stance_table(row, n_rows: int, t0: float):

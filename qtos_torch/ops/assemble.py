@@ -217,4 +217,4 @@ def assemble_kernel(x, spec, terrain, cfg, aux, slope):
     return out
 
 
-assemble_kernel.launches = 0
+cuda_lib.count_launches(assemble_kernel, "launches")

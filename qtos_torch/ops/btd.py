@@ -163,6 +163,4 @@ def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor,
     return x
 
 
-btd_solve.launches = 0
-btd_solve.small_launches = 0
-btd_solve.damped_launches = 0
+cuda_lib.count_launches(btd_solve, "launches", "small_launches", "damped_launches")

@@ -5,9 +5,9 @@ stem of its library's name, its `load_library(path)` (the C entry points'
 argument types) and the nvcc flags it adds (README.md's table).  This module
 alone knows the rest: the build directory, where nvcc is, the common nvcc
 argv, the cache name `{stem}_{sha256 of the source[:16]}.so` and its atomic
-write, the lazy locked load, the parse of ptxas's report, and the CPU
-stand-in's g++ argv, with `-ffp-contract=off` exactly where nvcc has
-`--fmad=false`.
+write, the lazy locked load, the parse of ptxas's report, the registry of
+the wrappers' launch counters, and the CPU stand-in's g++ argv, with
+`-ffp-contract=off` exactly where nvcc has `--fmad=false`.
 """
 
 from __future__ import annotations
@@ -75,6 +75,21 @@ def ptxas_registers(report: str, kernel: str) -> tuple:
     m = re.search(r"Compiling entry function '[^']*" + kernel + r"[^']*'.*?(\d+) bytes spill stores.*?"
                   r"Used (\d+) registers", report, re.S)
     return (int(m.group(2)), int(m.group(1))) if m else (None, None)
+
+
+# (wrapper, attribute) of every hand kernel's launch counter, registered by
+# `count_launches` where the wrapper is declared.
+LAUNCH_COUNTERS: list = []
+
+
+def count_launches(wrapper, *names: str):
+    """Sets the launch counters `wrapper.<name>` to 0 and registers them in
+    `LAUNCH_COUNTERS`, where a CUDA graph finds every counter its capture
+    moved (`control/graphs.py`) with no list of its own."""
+    for name in names:
+        setattr(wrapper, name, 0)
+        if (wrapper, name) not in LAUNCH_COUNTERS:
+            LAUNCH_COUNTERS.append((wrapper, name))
 
 
 @dataclasses.dataclass(frozen=True)

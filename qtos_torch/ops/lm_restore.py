@@ -121,4 +121,4 @@ def restore_rejected(accept: torch.Tensor, dst: tuple, kept: tuple | None) -> No
     restore_rejected.launches += int(accept.shape[0] > 0)
 
 
-restore_rejected.launches = 0
+cuda_lib.count_launches(restore_rejected, "launches")

@@ -234,5 +234,5 @@ def tick_hold(state: SimState, terrain, params, n_steps: int) -> SimState:
     return final
 
 
-tick_scan.launches = 0
-tick_hold.launches = 0
+cuda_lib.count_launches(tick_scan, "launches")
+cuda_lib.count_launches(tick_hold, "launches")

@@ -12,7 +12,7 @@ import dataclasses
 
 import torch
 
-from qtos_torch.device import resolve_device
+from qtos_torch.device import constant, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,7 +45,7 @@ def trot_schedule(
     """Trot: diagonal pairs alternate; full stance at both window ends."""
     dev = resolve_device(device)
     t = torch.arange(K, device=dev, dtype=torch.float32) * dt
-    offs = torch.tensor(offsets, dtype=torch.float32, device=dev)
+    offs = constant(tuple(offsets), torch.float32, dev)
     T = (K - 1) * dt
     cyc = torch.remainder((t[:, None] - stance_head) / period + offs[None, :], 1.0)
     in_stance_cycle = cyc < duty

@@ -17,6 +17,7 @@ import math
 
 import torch
 
+from qtos_torch.device import constant
 from qtos_torch.models.solo12 import Solo12
 from qtos_torch.ops.rotations import euler_to_rot, omega_to_euler_rate
 from qtos_torch.solver.spec import (
@@ -57,7 +58,7 @@ def knot_aux(spec: ProblemSpec, terrain: Terrain, cfg: SolverConfig) -> KnotAux:
     R0 = euler_to_rot(st.eul)                                          # (B, 3, 3)
     nominal = Solo12.tensors(dev).nominal_feet
     d0 = torch.einsum("bji,bkj->bki", R0, st.feet - st.r[:, None, :]) - nominal
-    rom_box = torch.tensor(cfg.rom_box, dtype=st.r.dtype, device=dev)
+    rom_box = constant(cfg.rom_box, st.r.dtype, dev)
     over = torch.clamp(torch.abs(d0) - rom_box, min=0.0)               # (B, 4, 3)
     h0 = height_at(terrain, st.feet[..., 0], st.feet[..., 1])
     hover0 = torch.clamp(st.feet[..., 2] - h0, min=0.0)                # (B, 4)
@@ -133,7 +134,7 @@ def knot_residuals(x, aux: KnotAux, spec: ProblemSpec, terrain: Terrain, cfg: So
     R = euler_to_rot(th)
     p_base = torch.einsum("...ji,...kj->...ki", R, p - r[..., None, :])
     d = p_base - Solo12.tensors(x.device).nominal_feet
-    box = torch.tensor(cfg.rom_box, dtype=x.dtype, device=x.device) + aux.box_widen
+    box = constant(cfg.rom_box, x.dtype, x.device) + aux.box_widen
     res_rom = torch.cat(
         [torch.clamp(d - box, min=0.0), torch.clamp(-d - box, min=0.0)], dim=-1
     ).reshape(lead + (24,)) * W.rom

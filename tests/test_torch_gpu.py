@@ -774,3 +774,174 @@ def test_replan_on_exp2_terrain_on_card_matches_cpu(cuda):
     limit = 4e-3
     assert compare.knot_gap(x, x_cpu) <= limit
     assert compare.table_gap(tables, contacts, tables_cpu, contacts_cpu) <= limit
+
+
+# The replan as a CUDA graph (`control/replan.py::plan_windows_batch`,
+# `control/graphs.py`): the first call with a key runs eagerly, the second
+# captures and replays, every later one replays.  Held bit for bit to the
+# eager path, which a cache of size 0 gives (every call a key's first).
+REPLAN_CELLS = {"exp_1": "replan.exp1", "exp_2": "replan.exp2"}
+
+
+def _replan_world(preset, dev, pools):
+    """The port's preset's terrain on `dev`, its benchmark cell's runner
+    settings and `pools` replans of start rows from that cell's traffic."""
+    from benchmark import harness, program, traffic
+
+    from qtos_torch.config.experiments import get_experiment
+    from qtos_torch.terrain import make_terrain
+
+    cell = harness.load_cell(REPLAN_CELLS[preset])
+    exp = get_experiment(preset)
+    terr = make_terrain(exp.maps, scale_factor=exp.mesh_scale, device=dev)
+    inputs = traffic.make(dict(cell["mix"], pool=pools), cell["cfg"], 2**31 + 23_017, dev)
+    return terr, program.runner_config(cell["cfg"]), inputs
+
+
+def _replan_outputs(out):
+    res, tables, contacts = out
+    return ([res.x, res.status, res.merit, res.max_violation, res.iters, tables, contacts]
+            + [res.viol[k] for k in sorted(res.viol)])
+
+
+# The launch counters an LM iteration of a replan moves by one each.
+SOLVER_COUNTERS = ("btd_solve.launches", "btd_solve.small_launches", "btd_solve.damped_launches",
+                   "assemble_kernel.launches", "restore_rejected.launches")
+
+
+def _launch_counts() -> dict:
+    """Every registered launch counter, by `wrapper.attribute`."""
+    from qtos_torch.ops import cuda_lib
+
+    return {f"{w.__name__}.{a}": getattr(w, a) for w, a in cuda_lib.LAUNCH_COUNTERS}
+
+
+def _replans(monkeypatch, size, calls):
+    """Each call's outputs, a copy of them taken as it returned, and the
+    launches it counted on every registered counter, through a fresh graph
+    cache of `size` keys."""
+    from qtos_torch.control import replan
+    from qtos_torch.control.graphs import GraphCache
+
+    monkeypatch.setattr(replan, "_GRAPHS", GraphCache(size))
+    monkeypatch.setattr(replan.plan_windows_batch, "captures", 0)
+    monkeypatch.setattr(replan.plan_windows_batch, "replays", 0)
+    outs, copies, launches = [], [], []
+    for call in calls:
+        before = _launch_counts()
+        out = call()
+        launches.append({k: n - before[k] for k, n in _launch_counts().items()})
+        outs.append(_replan_outputs(out))
+        copies.append([t.clone() for t in outs[-1]])
+    return outs, copies, launches
+
+
+def _assert_replays_are_eager(monkeypatch, calls, iters):
+    from qtos_torch.control.replan import plan_windows_batch
+
+    eager, _, eager_launches = _replans(monkeypatch, 0, calls)
+    assert plan_windows_batch.captures == plan_windows_batch.replays == 0
+    graph, copies, graph_launches = _replans(monkeypatch, 16, calls)
+    assert (plan_windows_batch.captures, plan_windows_batch.replays) == (1, len(calls) - 1)
+    assert eager_launches == graph_launches
+    assert all(n == (iters if name in SOLVER_COUNTERS else 0) for d in graph_launches for name, n in d.items())
+    assert all(name in graph_launches[0] for name in SOLVER_COUNTERS)
+    for n, (e, g, c) in enumerate(zip(eager, graph, copies)):
+        assert all(torch.equal(a, b) for a, b in zip(e, g)), f"call {n}: the replay is not the eager path's"
+        # the caller's tensors of call n are its own: later replays leave them
+        assert all(torch.equal(a, b) for a, b in zip(g, c)), f"call {n}'s outputs changed under a later call"
+
+
+@pytest.mark.parametrize("preset", sorted(REPLAN_CELLS))
+def test_replan_graph_replays_bit_for_bit(cuda, monkeypatch, preset):
+    """Five replans of different start rows with one key, on exp_1's flat
+    grid and on exp_2's climb: one eager call, one capture, and four pools
+    through the one graph, every output bit for bit the eager path's, the
+    launch counters the eager path's."""
+    from qtos_torch.control.replan import plan_windows_batch
+
+    terr, rcfg, i = _replan_world(preset, cuda, pools=5)
+    calls = [lambda p=p: plan_windows_batch(i["rows"][p], i["goals_r"][p], i["goals_yaw"][p], terr, rcfg,
+                                            t0s=i["t0s"][p]) for p in range(5)]
+    _assert_replays_are_eager(monkeypatch, calls, rcfg.solver.max_iters)
+
+
+@pytest.mark.parametrize("key", ["x0", "iters3", "k3"])
+def test_replan_graph_other_keys(cuda, monkeypatch, key):
+    """The keys a walk and the benchmark meet besides the plain one: warm
+    starts (`x0`, another per call), the start check's 3 LM iterations, 3
+    candidates."""
+    from qtos_torch.control.replan import plan_windows_batch
+
+    terr, rcfg, i = _replan_world("exp_1", cuda, pools=4)
+    k = 3 if key == "k3" else 4
+    cut = rcfg.solver.replace(max_iters=3) if key == "iters3" else None
+    warm = [None] * 4
+    if key == "x0":
+        warm = [plan_windows_batch(i["rows"][p], i["goals_r"][p], i["goals_yaw"][p], terr, rcfg,
+                                   solver_cfg=rcfg.solver.replace(max_iters=2))[0].x for p in range(4)]
+    calls = [lambda p=p: plan_windows_batch(i["rows"][p][:k], i["goals_r"][p][:k], i["goals_yaw"][p][:k], terr,
+                                            rcfg, t0s=i["t0s"][p][:k], x0=warm[p], solver_cfg=cut)
+             for p in range(4)]
+    _assert_replays_are_eager(monkeypatch, calls, 3 if cut is not None else rcfg.solver.max_iters)
+
+
+def test_replayed_replan_records_one_replay_span(cuda, monkeypatch):
+    """Under a profiler a replayed call is the `qtos::replan` root with one
+    `qtos::replan.replay` child (n = k): the host runs none of the stages."""
+    from qtos_torch.control import replan
+    from qtos_torch.control.graphs import GraphCache
+    from qtos_torch.utils import profiling
+
+    terr, rcfg, i = _replan_world("exp_1", cuda, pools=1)
+    monkeypatch.setattr(replan, "_GRAPHS", GraphCache(16))
+
+    def call():
+        return replan.plan_windows_batch(i["rows"][0], i["goals_r"][0], i["goals_yaw"][0], terr, rcfg,
+                                         t0s=i["t0s"][0])
+
+    call(), call()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts):
+        call()
+        torch.cuda.synchronize()
+    records = profiling.spans()
+    assert [(r["name"], r["n"], r["parent"]) for r in records] == [("qtos::replan", 4, None),
+                                                                  ("qtos::replan.replay", 4, 0)]
+
+
+def test_replayed_replan_launches_what_its_counters_count(cuda, monkeypatch):
+    """The kernels a replay runs, counted in a profiler's trace of one
+    replayed call, are those its counters add: one BTD solve on the
+    small-batch kernel, one assembly and one LM restore per LM iteration.
+    (A replay's counters add what its capture counted, so only the trace
+    shows what the card ran.)"""
+    from qtos_torch.control import replan
+    from qtos_torch.control.graphs import GraphCache
+
+    terr, rcfg, i = _replan_world("exp_1", cuda, pools=1)
+    monkeypatch.setattr(replan, "_GRAPHS", GraphCache(16))
+
+    def call():
+        return replan.plan_windows_batch(i["rows"][0], i["goals_r"][0], i["goals_yaw"][0], terr, rcfg,
+                                         t0s=i["t0s"][0])
+
+    call(), call()
+    replays, before = replan.plan_windows_batch.replays, _launch_counts()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        call()
+        torch.cuda.synchronize()
+    counted = {k: n - before[k] for k, n in _launch_counts().items()}
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    traced = {kernel: sum(kernel in n for n in names)
+              for kernel in ("btd_kernel", "btd_small_kernel", "assemble_kernel", "lm_restore_kernel")}
+    iters = rcfg.solver.max_iters
+    assert replan.plan_windows_batch.replays == replays + 1
+    assert traced == {"btd_kernel": 0, "btd_small_kernel": iters, "assemble_kernel": iters,
+                      "lm_restore_kernel": iters}
+    assert (counted["btd_solve.launches"], counted["btd_solve.small_launches"], counted["assemble_kernel.launches"],
+            counted["restore_rejected.launches"]) == (traced["btd_kernel"] + traced["btd_small_kernel"],
+                                                      traced["btd_small_kernel"], traced["assemble_kernel"],
+                                                      traced["lm_restore_kernel"])

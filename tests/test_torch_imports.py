@@ -18,6 +18,7 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "qtos_tpu")
 PORT_MODULES = [
     "qtos_torch.builder",
     "qtos_torch.config.experiments",
+    "qtos_torch.control.graphs",
     "qtos_torch.control.replan",
     "qtos_torch.runtime.bindings",
     "qtos_torch.utils.containers",
