@@ -16,7 +16,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      one nvcc each, all at once (ptxas report: registers, spills);
   3. BTD kernel vs plain version on random SPD systems (the shapes of the
      tests and those of the driven paths: B=1, K=33; B=20, K=25; B=1, B=4,
-     B=64, B=1024 and B=8192, K=41; B=3 and B=512, K=13; n=36) and on a
+     B=64, B=1024 and B=8192, K=41; B=3 and B=512, K=13; B=1, K=154, the
+     one-shot plan's, on btd_kernel; n=36) and on a
      Levenberg-Marquardt system of the main path; times of the kernel, the
      plain version, the library Thomas loop (over torch.linalg.cholesky and
      over cholesky_ex, each call's time), and the bound at B=8192, and of
@@ -39,7 +40,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (1, 41, 36);
   3b. the assembly kernel vs its plain version (tools/check_assemble.py) at
      every shape a path gives it ((1, 33), (4, 41), (20, 25), (64, 41),
-     (1024, 41), (8192, 41), (3, 13), (512, 13), (1, 41)) on the bench
+     (1024, 41), (8192, 41), (3, 13), (512, 13), (1, 41), and the one-shot
+     plan's (1, 154) in 4 chunks of shared memory) on the bench
      distribution's first iterate and on a perturbed iterate over step
      terrain with every hinge family active, two launches bit for bit;
      kernel, plain and bound ms at (1, 41), (4, 41), (1024, 41) and
@@ -47,7 +49,7 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      (tools/assemble_floor.py), registers, spills, shared memory and blocks
      per SM, beside the first design's recorded numbers;
   3c. the LM restore kernel vs its plain version and torch.where
-     (tools/check_restore.py) at (8192, 41), (4, 41) and (1, 41), every
+     (tools/check_restore.py) at (8192, 41), (4, 41), (1, 41) and (1, 154), every
      step accepted, every one rejected, a mix, and the mix with no kept
      system (zero fill), bit for bit; kernel, plain, torch.where and bound
      ms, and the host time of one call at B=4;
@@ -57,6 +59,13 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      / max), with the solver kernels' launch counters in each call (one
      launch each of the BTD, assembly and LM restore kernels per LM
      iteration), convergence and the 1 kHz table;
+  4b. the one-shot plan (scripts/main_torch.py --oneshot on exp_1, sized by
+     qtos_torch.builder.oneshot_plan: K=154, B=1, 80 LM iterations), one
+     solve_batch call after a warm-up: converged, and its launches, one each
+     of btd_kernel (never the small kernel), the assembly in more than one
+     chunk and the LM restore per LM iteration, as btd_solve.long_launches
+     and assemble_kernel.chunked_launches count them; neither counts in
+     phase 4's solves nor in phase 8a's replan;
   5. the port on CUDA against the port on CPU at B=64, K=41;
   6. physics playback, through the tick kernel: (a) the library quick start
      (plan, solve, sample, 500 warm-up ticks, 1 kHz playback) on the card;
@@ -143,9 +152,11 @@ KERNEL_ATOL = 5e-4          # random diagonally dominant systems, O(1) solutions
 # windows per replan (phase 8), phase 5's B=64, the ranks' slices of phase 9's
 # two-card run (B=5 and 1023 over two ranks, K=13: 3 and 512 each), phase 4's
 # and phase 9's B=1024, the bench batch (phase 4), which is timed, and the
-# TOWR window's single K=41 system (phase 10).
+# TOWR window's single K=41 system (phase 10), and the one-shot plan's single
+# K=154 system (phase 4b), whose factors do not fit the small kernel.
 SHAPES = [(3, 7, 12), (2, 5, 36), (1, 9, 5), (5, 4, 6), (1, 33, 36), (20, 25, 36), (4, 41, 36),
-          (64, 41, 36), (3, 13, 36), (512, 13, 36), (1024, 41, 36), (8192, 41, 36), (1, 41, 36)]
+          (64, 41, 36), (3, 13, 36), (512, 13, 36), (1024, 41, 36), (8192, 41, 36), (1, 41, 36),
+          (1, 154, 36)]
 # The small shapes timed besides the bench batch: a replan's (phase 8) and the
 # TOWR window's (phase 10).
 SMALL_TIMED = [(4, 41, 36), (1, 41, 36)]
@@ -176,6 +187,17 @@ def _zero_solver_counts():
     from qtos_torch.ops.lm_restore import restore_rejected
 
     btd_solve.launches = btd_solve.small_launches = assemble_kernel.launches = restore_rejected.launches = 0
+    btd_solve.long_launches = assemble_kernel.chunked_launches = 0
+
+
+def _long_counts() -> tuple:
+    """(btd_solve.long_launches, assemble_kernel.chunked_launches): the
+    launches that only a window longer than the small kernel's and the
+    assembly's shared memory takes."""
+    from qtos_torch.ops.assemble import assemble_kernel
+    from qtos_torch.ops.btd import btd_solve
+
+    return btd_solve.long_launches, assemble_kernel.chunked_launches
 
 
 @contextlib.contextmanager
@@ -706,6 +728,49 @@ def phase_tick(dev, card, played: dict, riser_window: tuple, peak_bytes, peak_fl
                 small_device_launches_per_replay=replay_device_launches)
 
 
+def phase_oneshot(dev, card) -> dict:
+    """Phase 4b: the one-shot plan of exp_1's whole path as
+    `scripts/main_torch.py --oneshot` makes it, one solve_batch call after a
+    warm-up call.  Returns the timed call's launches."""
+    import torch
+
+    from qtos_torch.builder import oneshot_plan, preset_runner_config
+    from qtos_torch.config import get_experiment
+    from qtos_torch.ops.btd import btd_solve
+    from qtos_torch.solver import default_spec, solve_batch
+    from qtos_torch.terrain import make_terrain
+
+    t0 = time.time()
+    exp = get_experiment("exp_1")
+    plan = oneshot_plan(exp.goal_xy, preset_runner_config(exp).avg_speed)
+    terrain = make_terrain(list(exp.maps), scale_factor=exp.mesh_scale, device=dev)
+    goal_x = torch.tensor([exp.goal_xy[0]], device=dev)            # a batch of one
+    spec = default_spec(terrain, start_xy=(0.0, 0.0), goal_xy=(goal_x, exp.goal_xy[1]), duration=plan.duration,
+                        K=plan.K, device=dev)
+    solve_batch(spec, terrain, plan.solver).status.cpu()           # warm-up
+    _zero_solver_counts()
+    t1 = kit.synced(dev)
+    res = solve_batch(spec, terrain, plan.solver)
+    status = int(res.status[0])                                   # the host read that ends the call
+    plan_s = kit.synced(dev) - t1
+    out = dict(btd=btd_solve.launches, small=btd_solve.small_launches, assemble=_asm_launches(),
+               restore=_restore_launches(), long=btd_solve.long_launches, chunked=_long_counts()[1])
+    iters = plan.solver.max_iters
+    line = (f"# phase 4b one-shot plan (exp_1, K={plan.K}, {plan.duration:.3f} s, B=1, max_iters={iters}) on "
+            f"{card}: {plan_s:.3f} s, status {status}, max violation {float(res.max_violation[0]):.3e} "
+            f"(tol {plan.solver.tol:g}); launches: btd {out['btd']} (of them the small-batch kernel's "
+            f"{out['small']}, long {out['long']}), assembly {out['assemble']} (chunked {out['chunked']}), LM restore "
+            f"{out['restore']} (phase 4b done in {time.time() - t0:.1f} s)")
+    if status != 0 or not bool(torch.isfinite(res.x).all()):
+        fail(line + ": the plan did not converge to a finite answer")
+    expected = dict(btd=iters, small=0, assemble=iters, restore=iters, long=iters, chunked=iters)
+    if out != expected:
+        fail(line + f": expected {expected}: one launch each per LM iteration, the BTD solve's all on btd_kernel "
+                    f"and counted long, the assembly's all chunked")
+    log(line)
+    return out
+
+
 def phase_planner(dev, card) -> None:
     """Phase 7."""
     import numpy as np
@@ -822,27 +887,31 @@ def phase_runner(dev, card, goal_xy=None, runner_cfg=None) -> dict:
         res, tables, _ = plan_windows_batch(rows, goals, gyaws, terrain, cfg)
         if i:
             times.append(kit.synced(dev) - t1)
-        counts.append((btd_solve.launches, _asm_launches(), btd_solve.small_launches, _restore_launches()))
+        counts.append((btd_solve.launches, _asm_launches(), btd_solve.small_launches, _restore_launches(),
+                       *_long_counts()))
     replan_s = statistics.median(times)
     captures, replays = (n - n0 for n, n0 in zip((plan_windows_batch.captures, plan_windows_batch.replays), graphs0))
     # The eager call's counts are the kernels' own launches; a replay's are
     # what its capture counted, and phase 6e's trace of a replay holds them
     # to the device's.
-    replan_launches, replan_asm, replan_small, replan_restore = counts[0]
+    replan_launches, replan_asm, replan_small, replan_restore, *replan_long = counts[0]
     n_conv = int((res.status == 0).sum())
     line = (f"# phase 8a replan (plan_windows_batch, B={k}, K={cfg.K}, max_iters={cfg.solver.max_iters}): "
             f"{replan_s * 1e3:.1f} ms on {card} (median of {len(times)} calls, {min(times) * 1e3:.1f} to "
             f"{max(times) * 1e3:.1f}, the first of them {times[0] * 1e3:.1f}; graphs captured {captures}, calls "
             f"replayed {replays}), the eager call's "
             f"btd launches {replan_launches} (of them the small-batch kernel's {replan_small}), assembly launches "
-            f"{replan_asm}, LM restore launches {replan_restore}; the replayed calls' counts (their capture's) "
+            f"{replan_asm}, LM restore launches {replan_restore}, long-window launches (BTD, chunked assembly) "
+            f"{tuple(replan_long)}; the replayed calls' counts (their capture's) "
             f"{sorted(set(counts[1:]))}; {n_conv}/{k} converged, "
             f"tables {tuple(tables.shape)}; the kernel against its plain version at "
             f"({k}, {cfg.K}, 36) is phase 3's row of that shape, a replay's device launches phase 6e's trace")
     if on_card and not (replan_launches == replan_asm == replan_restore == replan_small == cfg.solver.max_iters
+                        and replan_long == [0, 0]
                         and (captures, replays) == (1, len(times)) and set(counts) == {counts[0]}):
         fail(line + f": expected an eager call, then a capture and {len(times)} replays, each counting "
-                    f"{cfg.solver.max_iters} launches of each kernel, the BTD solve's all of the small-batch kernel")
+                    f"{cfg.solver.max_iters} launches of each kernel, the BTD solve's all of the small-batch kernel, "
+                    f"none of them a long window's")
     with _warp_kernel_only():
         res_w, tables_w, _ = plan_windows_batch(rows, goals, gyaws, terrain, cfg)
     same = torch.equal(res.x, res_w.x) and torch.equal(tables, tables_w) and torch.equal(res.status, res_w.status)
@@ -1296,8 +1365,12 @@ def main() -> None:
     damped_shapes = []
     for i, (B, K, n) in enumerate(SHAPES):
         D, L, b, xt = spd_system(B, K, n, i)
+        long0 = btd_solve.long_launches
         x = btd_solve(D, L, b)
         torch.cuda.synchronize()
+        # counted long only where the batch is the small kernel's and the
+        # horizon's factors are not
+        long = btd_solve.long_launches - long0
         xp = block_tridiag_solve(D, L, b)
         torch.cuda.synchronize()
         err = float((x - xp).abs().max())
@@ -1305,9 +1378,11 @@ def main() -> None:
         res = rel_residual(D, L, x, b)
         max_err_all = max(max_err_all, err)
         line = (f"# phase 3 kernel vs plain B={B} K={K} n={n}: max_abs_err {err:.3e} "
-                f"(vs true x {err_true:.3e}), |Hx-b|/|b| {res:.3e}")
+                f"(vs true x {err_true:.3e}), |Hx-b|/|b| {res:.3e}, counted in long_launches {long}")
         if not (math.isfinite(err) and err <= KERNEL_ATOL and err_true <= KERNEL_ATOL):
             fail(line + f" exceeds atol {KERNEL_ATOL}")
+        if long != int(not btd_mod.picks_small(B, K, n) and btd_mod.picks_small(B, 1, n)):
+            fail(line + " (gate: a launch is long where btd_kernel takes a batch the small kernel would)")
         # damped by lm: bit for bit the undamped solve of the damped copy, D untouched
         lm = damping(B, i)
         Dd, D0 = damped_copy(D, lm), D.clone()
@@ -1316,11 +1391,14 @@ def main() -> None:
         torch.cuda.synchronize()
         same, untouched = torch.equal(xd, xc), torch.equal(D, D0)
         counted = btd_solve.damped_launches - before
+        derr = float((xd - block_tridiag_solve(Dd, L, b)).abs().max())
         line += (f"; damped by lm in [{float(lm.min()):.2e}, {float(lm.max()):.2e}]: x equal to the undamped "
                  f"solve of the damped copy bit for bit {same}, D untouched {untouched}, damped launches {counted}, "
-                 f"{float((xd - x).abs().max()):.3e} from the undamped x")
-        if not (same and untouched and counted == 1):
-            fail(line + " (gates: the damped copy's x bit for bit, D untouched, one damped launch)")
+                 f"{float((xd - x).abs().max()):.3e} from the undamped x, max_abs_err {derr:.3e} against the plain "
+                 f"solve of the damped copy")
+        if not (same and untouched and counted == 1 and math.isfinite(derr) and derr <= KERNEL_ATOL):
+            fail(line + f" (gates: the damped copy's x bit for bit, D untouched, one damped launch, within atol "
+                        f"{KERNEL_ATOL} of the plain version)")
         damped_shapes.append((B, K, n))
         del Dd, D0, xd, xc
         if btd_mod.picks_small(B, K, n):
@@ -1507,7 +1585,7 @@ def main() -> None:
                    blocks_per_sm=occ["blocks_per_sm"])
 
     # ---- 3c. LM restore kernel vs plain -----------------------------------
-    # The shapes of the sweep, the replan and the TOWR window, every step
+    # The shapes of the sweep, the replan, the TOWR window and the one-shot plan, every step
     # accepted, every one rejected, a mix, and the mix with no kept system
     # (zero fill); held to the plain version and torch.where bit for bit.
     t0 = time.time()
@@ -1521,17 +1599,17 @@ def main() -> None:
     log(f"# phase 3c lm_restore_kernel on {card}: {restore_regs} registers, {restore_spills} B spill stores; host us "
         f"per call at B=4: the wrapper {restore_host['wrapper_us']:.2f}, the three torch.where calls it replaced "
         f"{restore_host['where_us']:.2f} (phase 3c done in {time.time() - t0:.1f} s)")
-    rr = {(r["B"], r["case"]): r for r in restore_rows}
+    rr = {(r["B"], r["K"], r["case"]): r for r in restore_rows}
     restore_row = dict(
-        ms=rr[8192, "accepted"]["kernel_ms"], plain_ms=rr[8192, "accepted"]["plain_ms"],
-        bound_ms=rr[8192, "accepted"]["bound_ms"], where_ms=rr[8192, "accepted"]["where_ms"],
-        ms_rejected=rr[8192, "rejected"]["kernel_ms"], plain_ms_rejected=rr[8192, "rejected"]["plain_ms"],
-        bound_ms_rejected=rr[8192, "rejected"]["bound_ms"], where_ms_rejected=rr[8192, "rejected"]["where_ms"],
-        ms_b4=rr[4, "mixed"]["kernel_ms"], plain_ms_b4=rr[4, "mixed"]["plain_ms"],
-        bound_ms_b4=rr[4, "mixed"]["bound_ms"], where_ms_b4=rr[4, "mixed"]["where_ms"],
-        rejected_b4=rr[4, "mixed"]["rejected"],
-        ms_b1=rr[1, "rejected"]["kernel_ms"], plain_ms_b1=rr[1, "rejected"]["plain_ms"],
-        bound_ms_b1=rr[1, "rejected"]["bound_ms"], where_ms_b1=rr[1, "rejected"]["where_ms"],
+        ms=rr[8192, 41, "accepted"]["kernel_ms"], plain_ms=rr[8192, 41, "accepted"]["plain_ms"],
+        bound_ms=rr[8192, 41, "accepted"]["bound_ms"], where_ms=rr[8192, 41, "accepted"]["where_ms"],
+        ms_rejected=rr[8192, 41, "rejected"]["kernel_ms"], plain_ms_rejected=rr[8192, 41, "rejected"]["plain_ms"],
+        bound_ms_rejected=rr[8192, 41, "rejected"]["bound_ms"], where_ms_rejected=rr[8192, 41, "rejected"]["where_ms"],
+        ms_b4=rr[4, 41, "mixed"]["kernel_ms"], plain_ms_b4=rr[4, 41, "mixed"]["plain_ms"],
+        bound_ms_b4=rr[4, 41, "mixed"]["bound_ms"], where_ms_b4=rr[4, 41, "mixed"]["where_ms"],
+        rejected_b4=rr[4, 41, "mixed"]["rejected"],
+        ms_b1=rr[1, 41, "rejected"]["kernel_ms"], plain_ms_b1=rr[1, 41, "rejected"]["plain_ms"],
+        bound_ms_b1=rr[1, 41, "rejected"]["bound_ms"], where_ms_b1=rr[1, 41, "rejected"]["where_ms"],
         host_us_b4=restore_host["wrapper_us"], where_host_us_b4=restore_host["where_us"],
         registers=restore_regs, spill_stores_bytes=restore_spills)
     torch.cuda.empty_cache()
@@ -1540,6 +1618,7 @@ def main() -> None:
     t0 = time.time()
     main_launches = main_asm_launches = main_restore_launches = None
     played = None
+    long0 = _long_counts()
     for B in (1024, 8192):
         specs, terrain = bench_torch.build_specs(B, dev)
         torch.cuda.reset_peak_memory_stats()
@@ -1563,6 +1642,9 @@ def main() -> None:
         if any(t["small_btd_launches"]):
             fail(f"the main path at B={B} launched the small-batch BTD kernel {t['small_btd_launches']} times: "
                  f"this batch is btd_kernel's")
+        if _long_counts() != long0:
+            fail(f"the main path at B={B} counted long-window launches (BTD, chunked assembly) "
+                 f"{tuple(a - b for a, b in zip(_long_counts(), long0))}: its windows of K={K} fit both kernels")
         if n_conv != B:
             fail(f"{B - n_conv}/{B} scenarios did not converge")
         if not bool(torch.isfinite(res.x).all()):
@@ -1594,6 +1676,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     log(f"# phase 4 profile took {time.time() - t1:.1f} s")
     log(f"# phase 4 done in {time.time() - t0:.1f} s")
+    oneshot_launches = phase_oneshot(dev, card)
 
     # ---- 5. CUDA vs CPU --------------------------------------------------
     t0 = time.time()
@@ -1634,6 +1717,8 @@ def main() -> None:
         launches_runner=runner_launches["runner"],
         launches_sharded=sharded_launches["btd"],
         launches_towr=towr_launches["btd"],
+        launches_oneshot=oneshot_launches["btd"],
+        long_launches_oneshot=oneshot_launches["long"],
         max_abs_err=max_err_all,
         max_err=max_err_all,
         **kernel_row,
@@ -1684,6 +1769,8 @@ def main() -> None:
         launches_runner=runner_launches["asm_runner"],
         launches_sharded=sharded_launches["assemble"],
         launches_towr=towr_launches["assemble"],
+        launches_oneshot=oneshot_launches["assemble"],
+        chunked_launches_oneshot=oneshot_launches["chunked"],
         device_launches_per_solve=tick_row.pop("asm_device_launches_per_solve"),
         registers=asm_regs,
         spill_stores_bytes=asm_spills,
@@ -1718,6 +1805,7 @@ def main() -> None:
         launches_runner=runner_launches["restore_runner"],
         launches_sharded=sharded_launches["restore"],
         launches_towr=towr_launches["restore"],
+        launches_oneshot=oneshot_launches["restore"],
         **restore_row,
     )
     print(json.dumps({"kernels": [row, small_row, tick_row, asm_row, restore_row]}), flush=True)

@@ -22,6 +22,7 @@ from qtos_torch.config import ExperimentConfig, get_experiment
 from qtos_torch.control.replan import RecedingHorizonRunner, RunnerConfig
 from qtos_torch.device import resolve_device
 from qtos_torch.models.solo12 import Solo12
+from qtos_torch.solver.spec import SolverConfig
 from qtos_torch.terrain import Terrain, make_terrain
 
 
@@ -114,3 +115,26 @@ def preset_runner_config(exp: ExperimentConfig, realtime: bool = False) -> Runne
 
         cfg.terrain_update = terrain_update
     return cfg
+
+
+@dataclass(frozen=True)
+class OneshotPlan:
+    """The sizes and solver settings of the one-shot mode's whole-path plan."""
+
+    duration: float
+    K: int
+    solver: SolverConfig
+
+
+ONESHOT_KNOT_DT = 0.0625
+
+
+def oneshot_plan(goal_xy, avg_speed: float) -> OneshotPlan:
+    """The one-shot mode's single plan of the whole path from a standing
+    start at the origin (reference `-t` run_default, main.py:105-137, which
+    takes 4.0 s a tile): the time to walk to the goal at `avg_speed`, at
+    least 2.5 s, knots ONESHOT_KNOT_DT apart, 80 LM iterations to a
+    violation of 5e-3."""
+    duration = max(2.5, float(np.hypot(goal_xy[0], goal_xy[1])) / avg_speed)
+    K = int(round(duration / ONESHOT_KNOT_DT)) + 1
+    return OneshotPlan(duration=duration, K=K, solver=SolverConfig(max_iters=80, tol=5e-3))

@@ -205,7 +205,9 @@ def assemble_kernel(x, spec, terrain, cfg, aux, slope):
     """The Gauss-Newton system of x (B, K, 36) on the card, one launch of
     the hand-written kernel: (D, L, g, merit).
 
-    `assemble_kernel.launches` counts kernel launches."""
+    `assemble_kernel.launches` counts kernel launches,
+    `assemble_kernel.chunked_launches` those of them whose windows are
+    longer than one chunk of the kernel's shared memory."""
     if x.device.type != "cuda":
         raise ValueError(f"the assembly kernel runs on cuda (solver.assemble.assemble runs the plain version "
                          f"on cpu), not {x.device}")
@@ -213,8 +215,10 @@ def assemble_kernel(x, spec, terrain, cfg, aux, slope):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         out = run(lib, x, spec, terrain, cfg, aux, slope, stream=stream)
-    assemble_kernel.launches += int(x.shape[0] > 0)
+    B, K = x.shape[0], x.shape[1]
+    assemble_kernel.launches += int(B > 0)
+    assemble_kernel.chunked_launches += int(B > 0 and lib.assemble_chunk(K) < K)
     return out
 
 
-cuda_lib.count_launches(assemble_kernel, "launches")
+cuda_lib.count_launches(assemble_kernel, "launches", "chunked_launches")

@@ -128,7 +128,9 @@ def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor,
 
     `btd_solve.launches` counts kernel launches (one per call on CUDA),
     `btd_solve.small_launches` those of them that went to the small-batch
-    kernel, `btd_solve.damped_launches` those that took `lm`.
+    kernel, `btd_solve.long_launches` those that went to `btd_kernel` at a
+    batch the small kernel takes because the horizon's factors do not fit
+    its shared memory, `btd_solve.damped_launches` those that took `lm`.
     """
     B, K, n = _check(D, L, b, lm)
     if D.device.type == "cpu":
@@ -145,6 +147,9 @@ def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor,
     lib = KERNEL.load()
     with torch.cuda.device(D.device):
         small = picks_small(B, K, n)
+        # btd_kernel only for the horizon: the small kernel takes B at one
+        # knot, whose factors always fit, but not K knots' factors
+        long = not small and picks_small(B, 1, n)
         if small:
             launch, scratch = lib.btd_small_solve_f32, None
         else:
@@ -159,8 +164,9 @@ def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor,
         raise RuntimeError(f"{kind} kernel launch failed at ({B}, {K}, {n}): CUDA error {err}")
     btd_solve.launches += 1
     btd_solve.small_launches += small
+    btd_solve.long_launches += long
     btd_solve.damped_launches += lm is not None
     return x
 
 
-cuda_lib.count_launches(btd_solve, "launches", "small_launches", "damped_launches")
+cuda_lib.count_launches(btd_solve, "launches", "small_launches", "long_launches", "damped_launches")

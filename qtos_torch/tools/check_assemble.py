@@ -60,9 +60,9 @@ ROUNDING = 1e-5
 # The shapes the paths give the kernel: the quick start (1, 33), a replan
 # (4, 41), the feasibility probe (20, 25), the card-vs-CPU solve (64, 41),
 # phases 4 and 9 (1024, 41), the bench batch (8192, 41), the ranks'
-# slices of phase 9's two-card run (3, 13) and (512, 13), and the TOWR
-# window's solve (1, 41).
-SHAPES = [(1, 33), (4, 41), (20, 25), (64, 41), (1024, 41), (8192, 41), (3, 13), (512, 13), (1, 41)]
+# slices of phase 9's two-card run (3, 13) and (512, 13), the TOWR
+# window's solve (1, 41), and the one-shot plan (1, 154), in 4 chunks.
+SHAPES = [(1, 33), (4, 41), (20, 25), (64, 41), (1024, 41), (8192, 41), (3, 13), (512, 13), (1, 41), (1, 154)]
 TIMED = [(1, 41), (4, 41), (1024, 41), (8192, 41)]
 # H100 SXM (NVIDIA data sheet): HBM bandwidth and non-tensor-core float32 rate.
 PEAK_BYTES_PER_S = 3.35e12
@@ -178,9 +178,9 @@ def compare(kind: str, B: int, K: int, device, timed: bool = False) -> dict:
     launches agree bit for bit; and (``timed``) the kernel's ms per launch,
     the wrapper's per call, the plain version's, the bound and this
     design's floor.  Launches made here are not counted in
-    `assemble_kernel.launches`."""
+    `assemble_kernel.launches` or `.chunked_launches`."""
     p = problem(kind, B, K, device)
-    before = asm.assemble_kernel.launches
+    before = (asm.assemble_kernel.launches, asm.assemble_kernel.chunked_launches)
     out, again, ref = kernel(p), kernel(p), plain(p)
     torch.cuda.synchronize()
     row = dict(kind=kind, B=B, K=K, bitwise_repeatable=all(torch.equal(a, b) for a, b in zip(out, again)))
@@ -205,7 +205,7 @@ def compare(kind: str, B: int, K: int, device, timed: bool = False) -> dict:
         row.update(ms=kit.event_ms(lambda: launch(stream), 10), call_ms=kit.event_ms(lambda: kernel(p), 10),
                    plain_ms=kit.event_ms(lambda: plain(p), 2), **bound(p),
                    **assemble_floor.design_floor(B, K, assemble_floor.max_sm_clock_mhz()))
-    asm.assemble_kernel.launches = before
+    asm.assemble_kernel.launches, asm.assemble_kernel.chunked_launches = before
     torch.cuda.empty_cache()
     return row
 

@@ -5,8 +5,8 @@ first):
 
     python3 -m qtos_torch.tools.check_restore
 
-At the sweep's (8192, 41), the replan's (4, 41) and the TOWR window's
-(1, 41) shapes, with every step accepted, every one rejected, a random mix,
+At the sweep's (8192, 41), the replan's (4, 41), the TOWR window's
+(1, 41) and the one-shot plan's (1, 154) shapes, with every step accepted, every one rejected, a random mix,
 and the mix with no kept system yet (zero fill), it holds the kernel to its
 plain version and to `torch.where` bit for bit and times, by CUDA events:
 the kernel (inputs packed once, as the loop calls it), the plain version,
@@ -31,7 +31,7 @@ from qtos_torch.solver.spec import NV
 from qtos_torch.tools.kit import card, event_ms
 
 PEAK_BYTES_S = 3.35e12
-SHAPES = ((8192, 41), (4, 41), (1, 41))
+SHAPES = ((8192, 41), (4, 41), (1, 41), (1, 154))
 CASES = ("accepted", "rejected", "mixed", "zero_fill")
 
 

@@ -186,21 +186,19 @@ def write_summary(name: str, summary: dict) -> None:
 
 def run_oneshot(terrain, goal, cfg, args, info):
     """Single solve of the whole path (reference `-t` run_default,
-    main.py:105-137: -duration 4.0 x num_tiles)."""
-    import numpy as np
-
+    main.py:105-137), sized by `qtos_torch.builder.oneshot_plan`."""
+    from qtos_torch.builder import oneshot_plan
     from qtos_torch.control import ControlParams, playback, stance_warmup
     from qtos_torch.control.loop import state_from_row
-    from qtos_torch.solver import SolverConfig, default_spec, sample_trajectory, solve
+    from qtos_torch.solver import default_spec, sample_trajectory, solve
     from qtos_torch.solver.sampler import table_to_csv
 
     dev = terrain.device
-    dist = float(np.hypot(goal[0], goal[1]))
-    duration = max(2.5, dist / cfg.avg_speed)
-    K = int(round(duration / 0.0625)) + 1
-    spec = default_spec(terrain, start_xy=(0.0, 0.0), goal_xy=goal, duration=duration, K=K, device=dev)
+    plan = oneshot_plan(goal, cfg.avg_speed)
+    K = plan.K
+    spec = default_spec(terrain, start_xy=(0.0, 0.0), goal_xy=goal, duration=plan.duration, K=K, device=dev)
     t0 = time.time()
-    res = solve(spec, terrain, SolverConfig(max_iters=80, tol=5e-3))
+    res = solve(spec, terrain, plan.solver)
     status, viol = int(res.status), float(res.max_violation)
     solve_s = time.time() - t0
     print(f"oneshot solve: status={status} viol={viol:.2e} "

@@ -15,7 +15,8 @@ stance foot on a pillar's edge (slope), a swing foot below the ground
 (no-penetration), a foot far from its hip (range of motion), forces outside
 the friction pyramid and above the cap, a base below its clearance.  Batches
 of B=3 with K=13, B=5 with K=9 and K=2 (one interval), B=2 with K=17 and K=45
-(two chunks of the kernel's shared memory) cover its walk over the knots in
+(two chunks of the kernel's shared memory) and B=1 with K=154 (the one-shot
+plan's window: four chunks of 39 knots) cover its walk over the knots in
 groups of four; a second build whose chunks hold at most 5 knots
 (`-DASM_MAX_CHUNK=5`) hands the halo from chunk to chunk at every shape.
 
@@ -161,7 +162,7 @@ def chunked_lib_path(tmp_path_factory):
     return emu.build(asm.KERNEL, os.path.join(EMU_DIR, "assemble_emu.cpp"), out, [f"-DASM_MAX_CHUNK={MAX_CHUNK}"])
 
 
-SHAPES = [(3, 13), (5, 9), (5, 2), (2, 17), (2, 45)]
+SHAPES = [(3, 13), (5, 9), (5, 2), (2, 17), (2, 45), (1, 154)]
 
 
 @pytest.fixture(scope="module")
@@ -461,7 +462,7 @@ def test_chunks_and_shared_memory(lib, chunked_lib_path):
     of an H100 SM's shared memory; longer ones in even chunks; the chunked
     build's windows cross chunks at every tested K."""
     assert lib.assemble_chunk(41) == 41 and lib.assemble_chunk(13) == 13 and lib.assemble_chunk(2) == 2
-    assert lib.assemble_chunk(45) == 23 and lib.assemble_chunk(83) == 28
+    assert lib.assemble_chunk(45) == 23 and lib.assemble_chunk(83) == 28 and lib.assemble_chunk(154) == 39
     smem = lib.assemble_smem_bytes
     assert smem(41) == 113376 and smem(45) < smem(41) and 2 * (smem(41) + 1024) <= 233472
     chunked = asm.load_library(chunked_lib_path)

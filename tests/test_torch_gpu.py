@@ -163,6 +163,31 @@ def test_dispatch_where_the_factors_do_not_fit(cuda):
     torch.testing.assert_close(x, block_tridiag_solve(D, L, b), rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("damped", [False, True], ids=["undamped", "damped"])
+def test_long_horizon_at_batch_one_goes_to_btd_kernel(cuda, damped):
+    """The one-shot plan's solve, (1, 154, 36): the batch is the small
+    kernel's but its factors are not, so btd_solve launches btd_kernel and
+    counts the launch in `long_launches`; x within ATOL of the plain solve
+    (of the damped copy when damped).  At the sweep's (8192, 41, 36) and the
+    replan's (4, 41, 36) nothing is counted there."""
+    D, L, b, _ = _system(1, 154, 36, 14, cuda)
+    lm = torch.full((1,), 0.3, device=cuda) if damped else None
+    assert not picks_small(1, 154, 36)
+    counts = (btd_solve.launches, btd_solve.small_launches, btd_solve.long_launches)
+    x = btd_solve(D, L, b, lm=lm)
+    torch.cuda.synchronize()
+    assert (btd_solve.launches, btd_solve.small_launches, btd_solve.long_launches) == (
+        counts[0] + 1, counts[1], counts[2] + 1)
+    plain = block_tridiag_solve(_damped_copy(D, lm) if damped else D, L, b)
+    torch.testing.assert_close(x, plain, rtol=0, atol=ATOL)
+    past = SMALL_PER_SM * torch.cuda.get_device_properties(cuda).multi_processor_count + 1
+    for B in (past, 4):
+        D, L, b, _ = _system(B, 41, 36, 15, cuda)
+        long = btd_solve.long_launches
+        btd_solve(D, L, b)
+        assert btd_solve.long_launches == long
+
+
 def test_small_kernel_launch_error_raises(cuda, monkeypatch):
     """No fallback: a small-batch launch the card refuses (its factors do not
     fit) raises, and no other kernel runs in its place."""
@@ -559,7 +584,7 @@ def test_sharded_solve_over_two_cards():
 
 
 @pytest.mark.parametrize("kind", ["bench", "steps"])
-@pytest.mark.parametrize("B,K", [(1, 33), (4, 41), (20, 25), (64, 41), (8192, 41), (2, 45)])
+@pytest.mark.parametrize("B,K", [(1, 33), (4, 41), (20, 25), (64, 41), (8192, 41), (2, 45), (1, 154)])
 def test_assemble_kernel_matches_plain(cuda, kind, B, K):
     from qtos_torch.tools import check_assemble
 
@@ -597,6 +622,21 @@ def test_assemble_launches_once_per_call(cuda):
     assemble_kernel.launches = btd_solve.launches = 0
     solve_batch(specs, terrain, cfg)
     assert assemble_kernel.launches == btd_solve.launches >= cfg.max_iters
+
+
+def test_assemble_counts_chunked_launches(cuda):
+    """The one-shot plan's window of 154 knots runs in 4 chunks of the
+    kernel's shared memory: the launch is counted in `chunked_launches`; a
+    window of 41 knots, one chunk, is not."""
+    from qtos_torch.ops.assemble import KERNEL, assemble_kernel
+    from qtos_torch.tools import check_assemble
+
+    assert KERNEL.load().assemble_chunk(154) == 39 and KERNEL.load().assemble_chunk(41) == 41
+    for (B, K), chunked in (((1, 154), 1), ((4, 41), 0)):
+        p = check_assemble.problem("bench", B, K, cuda)
+        counts = (assemble_kernel.launches, assemble_kernel.chunked_launches)
+        check_assemble.kernel(p)
+        assert (assemble_kernel.launches, assemble_kernel.chunked_launches) == (counts[0] + 1, counts[1] + chunked)
 
 
 def test_solve_batch_statuses_equal_the_plain_assembly_on_card(cuda, monkeypatch):
@@ -945,3 +985,45 @@ def test_replayed_replan_launches_what_its_counters_count(cuda, monkeypatch):
             counted["restore_rejected.launches"]) == (traced["btd_kernel"] + traced["btd_small_kernel"],
                                                       traced["btd_small_kernel"], traced["assemble_kernel"],
                                                       traced["lm_restore_kernel"])
+
+
+def test_oneshot_plan_on_card(cuda):
+    """The benchmark's `oneshot.exp1` plan, exp_1's whole path as the port's
+    one-shot mode sizes it (K=154, B=1, 80 LM iterations, goal 2.1 m):
+    converged, with 80 launches of btd_kernel (never the small kernel), of
+    the chunked assembly and of the restore, each counted in
+    `long_launches` and `chunked_launches`; a sweep's solve_batch at
+    (8192, 41) counts in neither."""
+    from benchmark import harness, program
+
+    from qtos_torch.ops.assemble import assemble_kernel
+    from qtos_torch.ops.lm_restore import restore_rejected
+    from qtos_torch.solver import default_spec, solve_batch
+
+    cfg = harness.load_cell("oneshot.exp1")["cfg"]
+    terr = program.terrain(harness.terrain_grid(cfg, cuda), cfg)
+    scfg = program.solver_config(cfg["solver"])
+    specs = default_spec(terr, goal_xy=(torch.tensor([2.1], device=cuda), 0.0), duration=cfg["duration_s"],
+                         K=cfg["K"], device=cuda)
+    counters = {c: (w, c.split(".")[1]) for w, c in (
+        (btd_solve, "btd_solve.launches"), (btd_solve, "btd_solve.small_launches"),
+        (btd_solve, "btd_solve.long_launches"), (assemble_kernel, "assemble_kernel.launches"),
+        (assemble_kernel, "assemble_kernel.chunked_launches"), (restore_rejected, "restore_rejected.launches"))}
+
+    def counted(call):
+        before = {c: getattr(w, a) for c, (w, a) in counters.items()}
+        out = call()
+        torch.cuda.synchronize()
+        return out, {c: getattr(w, a) - before[c] for c, (w, a) in counters.items()}
+
+    res, n = counted(lambda: solve_batch(specs, terr, scfg))
+    iters = scfg.max_iters
+    assert iters == 80 and int(res.status[0]) == 0, float(res.max_violation[0])
+    assert n == {"btd_solve.launches": iters, "btd_solve.small_launches": 0, "btd_solve.long_launches": iters,
+                 "assemble_kernel.launches": iters, "assemble_kernel.chunked_launches": iters,
+                 "restore_rejected.launches": iters}, n
+    terrain, specs, cfg3 = _bench_specs(cuda, 8192)
+    _, n = counted(lambda: solve_batch(specs, terrain, cfg3.replace(rescue_iters=0)))
+    assert n["btd_solve.launches"] == cfg3.max_iters and n["btd_solve.long_launches"] == 0
+    assert n["assemble_kernel.chunked_launches"] == 0
+
