@@ -17,7 +17,8 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   3. BTD kernel vs plain version on random SPD systems (the shapes of the
      tests and those of the driven paths: B=1, K=33; B=20, K=25; B=1, B=4,
      B=64, B=1024 and B=8192, K=41; B=3 and B=512, K=13; B=1, K=154, the
-     one-shot plan's, on btd_kernel; n=36) and on a
+     one-shot plan's, and B=1, K=129, the reference's 8 s tile, both on the
+     long-horizon kernel; n=36) and on a
      Levenberg-Marquardt system of the main path; times of the kernel, the
      plain version, the library Thomas loop (over torch.linalg.cholesky and
      over cholesky_ex, each call's time), and the bound at B=8192, and of
@@ -37,7 +38,14 @@ Phases (any failure ends the run with a non-zero exit and no result line):
      the damped copy D + diag_embed(lm * diag(D) + 1e-8), D left as it was
      and each damped call counted in btd_solve.damped_launches, and its
      times beside the undamped ones at (8192, 41, 36), (4, 41, 36) and
-     (1, 41, 36);
+     (1, 41, 36); the long-horizon kernel (reduce::btd_kernel, block cyclic
+     reduction, the same source) held to the plain version at every shape
+     btd_pick_reduce gives it and counted in btd_solve.reduce_launches, its
+     times at (1, 154, 36) and (1, 129, 36) in turns with btd_kernel's
+     (gated at 1 ms a solve at (1, 154, 36)) beside its design floor
+     (tools/btd_floor.py), at (1, 41, 36) and (4, 41, 36) in turns with the
+     small kernel's (measured only: the small kernel takes those), and both
+     kernels at K=154 and B = 1 .. 64 for its crossover;
   3b. the assembly kernel vs its plain version (tools/check_assemble.py) at
      every shape a path gives it ((1, 33), (4, 41), (20, 25), (64, 41),
      (1024, 41), (8192, 41), (3, 13), (512, 13), (1, 41), and the one-shot
@@ -62,9 +70,10 @@ Phases (any failure ends the run with a non-zero exit and no result line):
   4b. the one-shot plan (scripts/main_torch.py --oneshot on exp_1, sized by
      qtos_torch.builder.oneshot_plan: K=154, B=1, 80 LM iterations), one
      solve_batch call after a warm-up: converged, and its launches, one each
-     of btd_kernel (never the small kernel), the assembly in more than one
-     chunk and the LM restore per LM iteration, as btd_solve.long_launches
-     and assemble_kernel.chunked_launches count them; neither counts in
+     of the long-horizon BTD kernel (never the small kernel), the assembly
+     in more than one chunk and the LM restore per LM iteration, as
+     btd_solve.long_launches, btd_solve.reduce_launches and
+     assemble_kernel.chunked_launches count them; none of them counts in
      phase 4's solves nor in phase 8a's replan;
   5. the port on CUDA against the port on CPU at B=64, K=41;
   6. physics playback, through the tick kernel: (a) the library quick start
@@ -153,15 +162,24 @@ KERNEL_ATOL = 5e-4          # random diagonally dominant systems, O(1) solutions
 # two-card run (B=5 and 1023 over two ranks, K=13: 3 and 512 each), phase 4's
 # and phase 9's B=1024, the bench batch (phase 4), which is timed, and the
 # TOWR window's single K=41 system (phase 10), and the one-shot plan's single
-# K=154 system (phase 4b), whose factors do not fit the small kernel.
+# K=154 system (phase 4b) and the reference's 8 s tile's K=129, whose factors
+# do not fit the small kernel.
 SHAPES = [(3, 7, 12), (2, 5, 36), (1, 9, 5), (5, 4, 6), (1, 33, 36), (20, 25, 36), (4, 41, 36),
           (64, 41, 36), (3, 13, 36), (512, 13, 36), (1024, 41, 36), (8192, 41, 36), (1, 41, 36),
-          (1, 154, 36)]
+          (1, 154, 36), (1, 129, 36)]
 # The small shapes timed besides the bench batch: a replan's (phase 8) and the
 # TOWR window's (phase 10).
 SMALL_TIMED = [(4, 41, 36), (1, 41, 36)]
 # Batches at which both BTD kernels are timed for the crossover (K=41, n=36).
 CROSSOVER_BATCHES = (1, 2, 4, 20, 64, 132, 264, 265, 396)
+# Batches at which btd_kernel and the long-horizon kernel are timed for that
+# kernel's crossover (K=154, n=36), and the shapes it is timed at: the
+# one-shot plan's and the 8 s tile's beside btd_kernel, which it replaces
+# there, and a TOWR window's and a replan's beside the small kernel, which
+# keeps those (for the record).
+REDUCE_BATCHES = (1, 2, 4, 8, 16, 32, 64, 65, 128, 256)
+REDUCE_TIMED = [(1, 154, 36), (1, 129, 36), (1, 41, 36), (4, 41, 36)]
+REDUCE_MAX_MS = 1.0          # a solve at (1, 154, 36), at most
 
 
 def _asm_launches() -> int:
@@ -187,7 +205,7 @@ def _zero_solver_counts():
     from qtos_torch.ops.lm_restore import restore_rejected
 
     btd_solve.launches = btd_solve.small_launches = assemble_kernel.launches = restore_rejected.launches = 0
-    btd_solve.long_launches = assemble_kernel.chunked_launches = 0
+    btd_solve.long_launches = btd_solve.reduce_launches = assemble_kernel.chunked_launches = 0
 
 
 def _long_counts() -> tuple:
@@ -754,19 +772,21 @@ def phase_oneshot(dev, card) -> dict:
     status = int(res.status[0])                                   # the host read that ends the call
     plan_s = kit.synced(dev) - t1
     out = dict(btd=btd_solve.launches, small=btd_solve.small_launches, assemble=_asm_launches(),
-               restore=_restore_launches(), long=btd_solve.long_launches, chunked=_long_counts()[1])
+               restore=_restore_launches(), long=btd_solve.long_launches, reduce=btd_solve.reduce_launches,
+               chunked=_long_counts()[1])
     iters = plan.solver.max_iters
     line = (f"# phase 4b one-shot plan (exp_1, K={plan.K}, {plan.duration:.3f} s, B=1, max_iters={iters}) on "
             f"{card}: {plan_s:.3f} s, status {status}, max violation {float(res.max_violation[0]):.3e} "
             f"(tol {plan.solver.tol:g}); launches: btd {out['btd']} (of them the small-batch kernel's "
-            f"{out['small']}, long {out['long']}), assembly {out['assemble']} (chunked {out['chunked']}), LM restore "
+            f"{out['small']}, long {out['long']}, the long-horizon kernel's {out['reduce']}), assembly "
+            f"{out['assemble']} (chunked {out['chunked']}), LM restore "
             f"{out['restore']} (phase 4b done in {time.time() - t0:.1f} s)")
     if status != 0 or not bool(torch.isfinite(res.x).all()):
         fail(line + ": the plan did not converge to a finite answer")
-    expected = dict(btd=iters, small=0, assemble=iters, restore=iters, long=iters, chunked=iters)
+    expected = dict(btd=iters, small=0, assemble=iters, restore=iters, long=iters, reduce=iters, chunked=iters)
     if out != expected:
-        fail(line + f": expected {expected}: one launch each per LM iteration, the BTD solve's all on btd_kernel "
-                    f"and counted long, the assembly's all chunked")
+        fail(line + f": expected {expected}: one launch each per LM iteration, the BTD solve's all on the "
+                    f"long-horizon kernel and counted long, the assembly's all chunked")
     log(line)
     return out
 
@@ -1317,29 +1337,33 @@ def main() -> None:
     def rel_residual(D, L, x, b):
         return float(torch.linalg.norm(block_tridiag_matvec(D, L, x) - b) / torch.linalg.norm(b))
 
-    def packed_launcher(D, L, b, small=False, lm=None):
+    def packed_launcher(D, L, b, small=False, lm=None, reduce=False):
         """(launch, x): one launch of btd_kernel, or of the small-batch
-        kernel, on inputs packed once (the output and the factors' scratch
-        allocated once, no wrapper, no count), damped by `lm` if given."""
+        kernel, or of the long-horizon kernel, on inputs packed once (the
+        output and the scratch allocated once, no wrapper, no count), damped
+        by `lm` if given."""
         lib = btd_mod.KERNEL.load()
         B, K, n = b.shape
         x = torch.empty_like(b)
-        scratch = torch.empty((B, K - 1, lib.btd_packed_floats(n)), dtype=D.dtype, device=dev)
+        if reduce:
+            scratch = btd_mod.reduce_scratch(B, K, n, dev)
+        else:
+            scratch = torch.empty((B, K - 1, lib.btd_packed_floats(n)), dtype=D.dtype, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
-        fn = lib.btd_small_solve_f32 if small else lib.btd_solve_f32
+        fn = lib.btd_reduce_solve_f32 if reduce else lib.btd_small_solve_f32 if small else lib.btd_solve_f32
 
         def launch():
             err = fn(D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(), scratch.data_ptr(), B, K, n, stream,
                      None if lm is None else lm.data_ptr())
             if err != 0:
-                fail(f"phase 3: {'small-batch' if small else 'btd'} kernel launch failed at ({B}, {K}, {n}): "
-                     f"CUDA error {err}")
+                kind = "long-horizon" if reduce else "small-batch" if small else "btd"
+                fail(f"phase 3: {kind} kernel launch failed at ({B}, {K}, {n}): CUDA error {err}")
 
         return launch, x
 
-    def packed_launch_ms(D, L, b, small=False, lm=None):
+    def packed_launch_ms(D, L, b, small=False, lm=None, reduce=False):
         """ms per launch of one kernel alone, on inputs packed once."""
-        launch, _ = packed_launcher(D, L, b, small, lm)
+        launch, _ = packed_launcher(D, L, b, small, lm, reduce)
         launch()
         return kit.event_ms(launch, 20)
 
@@ -1363,14 +1387,16 @@ def main() -> None:
     max_err_all = small_err = 0.0
     small_shapes = []
     damped_shapes = []
+    reduce_shapes, reduce_err = [], 0.0
     for i, (B, K, n) in enumerate(SHAPES):
         D, L, b, xt = spd_system(B, K, n, i)
-        long0 = btd_solve.long_launches
+        long0, reduce0 = btd_solve.long_launches, btd_solve.reduce_launches
         x = btd_solve(D, L, b)
         torch.cuda.synchronize()
         # counted long only where the batch is the small kernel's and the
-        # horizon's factors are not
-        long = btd_solve.long_launches - long0
+        # horizon's factors are not; of those, on the long-horizon kernel up
+        # to its crossover
+        long, reduce = btd_solve.long_launches - long0, btd_solve.reduce_launches - reduce0
         xp = block_tridiag_solve(D, L, b)
         torch.cuda.synchronize()
         err = float((x - xp).abs().max())
@@ -1378,11 +1404,17 @@ def main() -> None:
         res = rel_residual(D, L, x, b)
         max_err_all = max(max_err_all, err)
         line = (f"# phase 3 kernel vs plain B={B} K={K} n={n}: max_abs_err {err:.3e} "
-                f"(vs true x {err_true:.3e}), |Hx-b|/|b| {res:.3e}, counted in long_launches {long}")
+                f"(vs true x {err_true:.3e}), |Hx-b|/|b| {res:.3e}, counted in long_launches {long}, in "
+                f"reduce_launches {reduce}")
         if not (math.isfinite(err) and err <= KERNEL_ATOL and err_true <= KERNEL_ATOL):
             fail(line + f" exceeds atol {KERNEL_ATOL}")
-        if long != int(not btd_mod.picks_small(B, K, n) and btd_mod.picks_small(B, 1, n)):
-            fail(line + " (gate: a launch is long where btd_kernel takes a batch the small kernel would)")
+        expect_long = int(not btd_mod.picks_small(B, K, n) and btd_mod.picks_small(B, 1, n))
+        if long != expect_long or reduce != int(expect_long and btd_mod.picks_reduce(B, K, n)):
+            fail(line + " (gates: a launch is long where the small kernel would take the batch but not the "
+                        "horizon, and on the long-horizon kernel where btd_pick_reduce says so)")
+        if reduce:
+            reduce_shapes.append((B, K, n))
+            reduce_err = max(reduce_err, err)
         # damped by lm: bit for bit the undamped solve of the damped copy, D untouched
         lm = damping(B, i)
         Dd, D0 = damped_copy(D, lm), D.clone()
@@ -1507,6 +1539,46 @@ def main() -> None:
         f"{torch.cuda.get_device_properties(0).multi_processor_count} SMs")
     log(f"# phase 3 small-batch kernel: held to btd_kernel bit for bit and to the plain version at "
         f"{small_shapes}, max_abs_err {small_err:.3e}")
+
+    # The long-horizon kernel: its times in turns with the kernel it replaces
+    # at the one-shot's horizons, and with the small kernel at K=41 (for the
+    # record: the small kernel keeps those); its floor; its crossover with
+    # btd_kernel at K=154, against the rule fixed in btd.cu (btd_pick_reduce).
+    reduce_rows = {}
+    for i, (B, K, n) in enumerate(REDUCE_TIMED):
+        D, L, b, _ = spd_system(B, K, n, 200 + i)
+        small = btd_mod.picks_small(B, K, n)
+        o1, r1, r2, o2 = (packed_launch_ms(D, L, b, small=small and not r, reduce=r) for r in (False, True, True, False))
+        floor_ms, _, floor_stages = btd_floor.reduce_floor(op_cycles, K, n, sm_clock)
+        reduce_rows[(B, K)] = dict(ms=(r1 + r2) / 2, other_ms=(o1 + o2) / 2, other="small" if small else "btd_kernel",
+                                   floor_ms=floor_ms, bound_ms=bound(B, K, n)[0])
+        r = reduce_rows[(B, K)]
+        log(f"# phase 3 long-horizon kernel B={B} K={K} n={n} on {card}: {r1:.4f} / {r2:.4f} ms in turns with "
+            f"{r['other']} {o1:.4f} / {o2:.4f} ms ({r['other_ms'] / r['ms']:.2f}x), bound {r['bound_ms']:.5f} ms, its "
+            f"design floor {floor_ms:.4f} ms ({r['ms'] / floor_ms:.1f}x; cycles by stage "
+            + ", ".join(f"{k} {v:.0f}" for k, v in floor_stages.items()) + f" at {sm_clock:g} MHz, without the "
+            f"{2 * btd_floor.levels(K)} grid barriers and the L2 round trips), grid "
+            f"{btd_mod.KERNEL.load().btd_reduce_grid(B, K, n)} blocks")
+        del D, L, b
+    if not reduce_rows[(1, 154)]["ms"] <= REDUCE_MAX_MS:
+        fail(f"phase 3: the long-horizon kernel takes {reduce_rows[(1, 154)]['ms']:.4f} ms at (1, 154, 36), more "
+             f"than {REDUCE_MAX_MS} ms")
+    reduce_crossover = {}
+    for i, B in enumerate(REDUCE_BATCHES):
+        D, L, b, _ = spd_system(B, 154, 36, 300 + i)
+        w1, r1, r2, w2 = (packed_launch_ms(D, L, b, reduce=r) for r in (False, True, True, False))
+        reduce_crossover[B] = dict(btd_kernel_ms=(w1 + w2) / 2, reduce_ms=(r1 + r2) / 2,
+                                   picked="reduce" if btd_mod.picks_reduce(B, 154, 36) else "btd_kernel")
+        del D, L, b
+    faster = [B for B, c in reduce_crossover.items() if c["reduce_ms"] < c["btd_kernel_ms"]]
+    reduce_batch = max(faster) if faster else 0
+    log(f"# phase 3 crossover at K=154, n=36 on {card} (ms per launch, btd_kernel / long-horizon kernel, mean of two "
+        f"in turns; the kernel btd_pick_reduce picks): " + ", ".join(
+            f"B={B} {c['btd_kernel_ms']:.4f} / {c['reduce_ms']:.4f} ({c['picked']})" for B, c in reduce_crossover.items())
+        + f"; the long-horizon kernel is faster up to B={reduce_batch} of these")
+    log(f"# phase 3 long-horizon kernel: held to the plain version at {reduce_shapes}, max_abs_err {reduce_err:.3e}")
+    if not reduce_shapes:
+        fail("phase 3: no shape went to the long-horizon kernel")
     log(f"# phase 3 damped solves: bit for bit the damped copy's at {damped_shapes}, each counted once in "
         f"btd_solve.damped_launches and the undamped solve of the copy not")
 
@@ -1757,6 +1829,29 @@ def main() -> None:
         registers=small_regs,
         spill_stores_bytes=small_spills,
     )
+    q154, q129, q41, q4 = (reduce_rows[k] for k in ((1, 154), (1, 129), (1, 41), (4, 41)))
+    reduce_row = dict(
+        name="btd_reduce",
+        route="cuda",
+        source="qtos_torch/csrc/btd.cu",
+        replaces="qtos_tpu/ops/pallas/btd.py:153 (_btd_kernel), at small batches whose factors do not fit the "
+                 "small kernel's shared memory",
+        launches_oneshot=oneshot_launches["reduce"],
+        max_abs_err=reduce_err,
+        ms=q154["ms"],
+        btd_kernel_ms=q154["other_ms"],
+        bound_ms=q154["bound_ms"],
+        floor_ms=q154["floor_ms"],
+        ms_k129=q129["ms"],
+        btd_kernel_ms_k129=q129["other_ms"],
+        floor_ms_k129=q129["floor_ms"],
+        ms_b1_k41=q41["ms"],
+        small_ms_b1_k41=q41["other_ms"],
+        ms_b4_k41=q4["ms"],
+        small_ms_b4_k41=q4["other_ms"],
+        crossover_batch=reduce_batch,
+        crossover_ms={B: [c["btd_kernel_ms"], c["reduce_ms"]] for B, c in reduce_crossover.items()},
+    )
     asm_row = dict(
         name="assemble",
         route="cuda",
@@ -1808,7 +1903,7 @@ def main() -> None:
         launches_oneshot=oneshot_launches["restore"],
         **restore_row,
     )
-    print(json.dumps({"kernels": [row, small_row, tick_row, asm_row, restore_row]}), flush=True)
+    print(json.dumps({"kernels": [row, small_row, tick_row, asm_row, restore_row, reduce_row]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
 

@@ -1048,6 +1048,461 @@ btd_small_kernel(const float* __restrict__ D, const float* __restrict__ L,
 
 }  // namespace
 
+// ---- the long-horizon kernel: block cyclic reduction ------------------------
+//
+// One launch solves a few scenarios whose horizons are too long for the small
+// kernel's shared memory (btd_pick_reduce says when), with each scenario's
+// knots spread over the whole card: at B = 1, K = 154 a walk of K dependent
+// knot steps on one warp (btd_kernel) becomes ceil(log2 K) = 8 levels, each
+// of which eliminates half of the knots left, all at once.
+//
+// The recursion is block Cholesky in odd-even order.  At level l the knots
+// left are the multiples of 2^l; those at odd multiples are eliminated.  For
+// an eliminated knot i with neighbours a = i - 2^l and c = i + 2^l (c < K) of
+// the current, reduced system H' (D'_i its diagonal block, H'[i][a] and
+// H'[c][i] its couplings, b'_i its right-hand side):
+//   C_i = chol(D'_i), pivots clamped at 1e-12 (chol_inplace)
+//   W_i = C_i^-1 H'[i][a],  V_i = C_i^-1 H'[c][i]^T,  y_i = C_i^-1 b'_i
+// and the kept neighbours take
+//   D'_a -= W_i^T W_i,  D'_c -= V_i^T V_i,  H''[c][a] = -V_i^T W_i,
+//   b'_a -= W_i^T y_i,  b'_c -= V_i^T y_i.
+// At the last level one knot is left, knot 0: x_0 = C_0^-T y_0.  The back
+// pass runs the levels top down: x_i = C_i^-T (y_i - W_i x_a - V_i x_c).
+//
+// A phase per level, with a grid barrier between two phases.  Phase l has
+// one item per knot left at level l (at level 0 only the eliminated ones):
+// the block that takes it first applies level l - 1's updates to its own
+// knot, from the two eliminated neighbours k +- 2^(l-1), whose W, V and y
+// level l - 1 stored (so no two blocks write one block of memory, and the
+// updates of one level cost no barrier of their own); a kept knot stores
+// D'_k and b'_k, an eliminated one also forms its two couplings of level l
+// from those neighbours, H'[k][a] = -V_e^T W_e with e = k - 2^(l-1) and
+// H'[c][k] = -V_e'^T W_e' with e' = k + 2^(l-1), and is eliminated:
+//   - copies in: D_k (the original, damped as it lands, through level 1;
+//     from the scratch after), b_k (from b through level 1; from x's slot
+//     after), the neighbours' W^T, V^T and y, or at level 0 the original
+//     L_{k-1} (transposed) and L_k;
+//   - the products on 4 x 4 register tiles over all threads: the lower
+//     triangle of D'_k, the rows H'[k][a]^T and H'[c][k] (W_k^T's and
+//     V_k^T's right-hand sides) and b'_k;
+//   - the Cholesky on warp 0 (chol_inplace) and, behind it, each column
+//     block as the Cholesky hands it on at a named barrier (as in the small
+//     kernel), the 2n + 1 row solves W_k^T C_k^T = H'[k][a]^T,
+//     V_k^T C_k^T = H'[c][k] and C_k y_k = b'_k, one row per thread of
+//     warps 1.. (forward_row_block);
+//   - C_k, W_k^T and V_k^T out to the scratch, y_k into x's slot k.
+// The back pass gives each eliminated knot of a level to one warp: C_k and
+// the two neighbours' x by cp.async, y_k - W_k x_a - V_k x_c with lanes
+// owning entries, then C_k^T x_k = r on the warp (back_solve_vec).  Every
+// expression is float32, rounded as written (no tensor core, no TF32).
+//
+// Scratch per scenario (floats; nn = n * n): C_k at k nn, W_k^T at (K + k) nn,
+// V_k^T at (2 K + k) nn, and D'_k of the knots kept past level 1 (the
+// multiples of 4) at (3 K + k / 4) nn.  x holds b'_k, then y_k, then x_k.
+//
+// Mapping: a cooperative launch of at most as many blocks as the card holds
+// at once, each of kThreads threads, walking the items of a phase (and the
+// warps those of a back level) by grid stride; the grid barrier is
+// cooperative_groups' grid sync.  Its name, reduce::btd_kernel, keeps the
+// word btd_kernel that the profiler's traces of the BTD solve are read by.
+
+#ifndef QTOS_EMU_GRID_SYNC
+#include <cooperative_groups.h>
+#endif
+
+namespace {
+namespace reduce {
+
+constexpr int kThreads = 256;
+constexpr int kBackWarps = kThreads / 32;
+// The crossover, measured on an H100 at K = 154, n = 36 against btd_kernel
+// at B = 1, 2, 4, ..., 64 (PERF.md): this kernel took 0.198 ms at B = 1 and
+// 1.54 ms at B = 64, about 0.2 + 0.021 B, btd_kernel 3.82-3.90 ms at all of
+// them.  This kernel up to the largest of those batches, btd_kernel above.
+constexpr int kMaxBatch = 64;
+
+#ifndef QTOS_EMU_GRID_SYNC
+// Every thread of the grid waits here for all the others; the writes to
+// global memory before it are seen by every read after it.
+__device__ __forceinline__ void grid_sync() { cooperative_groups::this_grid().sync(); }
+#endif
+#ifndef QTOS_EMU_BLOCK_SMEM
+// The block's dynamic shared memory.
+__device__ __forceinline__ float* block_smem() {
+  extern __shared__ float4 smem4[];
+  return reinterpret_cast<float*>(smem4);
+}
+#endif
+
+// Shared memory of a phase's item (floats): S (n x cs_pitch(n)) for
+// D_k -> D'_k -> C_k; R, 2n + 1 rows at pitch n + 1, for the right-hand
+// sides of W_k^T, V_k^T and y_k and then those; the four neighbour blocks of
+// level l - 1 at pitch n + 1 (odd pitches: one row per thread, or one row of
+// a tile per thread, fall in distinct banks); and their two y.
+__host__ __device__ constexpr size_t item_floats(int n) {
+  return (size_t)n * cs_pitch(n) + round4((2 * n + 1) * (n + 1)) + 4 * (size_t)n * (n + 1) + round4(2 * n);
+}
+// Shared memory of one warp in the back pass: C_k (n x cs_pitch(n)) and the
+// neighbours' x.
+__host__ __device__ constexpr size_t back_floats(int n) {
+  return (size_t)n * cs_pitch(n) + round4(2 * n);
+}
+__host__ __device__ constexpr size_t smem_floats(int n) {
+  return item_floats(n) > kBackWarps * back_floats(n) ? item_floats(n) : kBackWarps * back_floats(n);
+}
+// Scratch floats of one scenario.
+__host__ __device__ constexpr size_t scenario_floats(int K, int n) {
+  return (size_t)(3 * K + (K + 3) / 4) * n * n;
+}
+
+// The levels below the last: the least Lv with 2^Lv >= K.
+__host__ __device__ inline int levels(int K) {
+  int l = 0;
+  while ((1 << l) < K) ++l;
+  return l;
+}
+// Items of phase l and the knot of item j: at level 0 the odd knots (the
+// even ones have nothing to do yet), after it every knot left.
+__device__ __forceinline__ int phase_items(int K, int l, int Lv) {
+  return l == 0 && Lv > 0 ? K / 2 : (K + (1 << l) - 1) >> l;
+}
+__device__ __forceinline__ int phase_knot(int j, int l, int Lv) { return l == 0 && Lv > 0 ? 2 * j + 1 : j << l; }
+// Knots eliminated at level l < Lv: the odd multiples of 2^l below K.
+__device__ __forceinline__ int back_items(int K, int l) { return (((K - 1) >> l) + 1) >> 1; }
+
+// Starts the 4-byte copies dst[i * ld + j] = src[i * n + j] (transposed:
+// dst[j * ld + i]) of an n x n block, spread over nthreads threads.
+__device__ __forceinline__ void copy_pitched(float* dst, int ld, const float* src, int n, bool transposed,
+                                             int tid, int nthreads) {
+  for (int e = tid; e < n * n; e += nthreads) {
+    const int i = e / n, j = e - i * n;
+    __pipeline_memcpy_async(transposed ? dst + j * ld + i : dst + i * ld + j, src + e, 4);
+  }
+}
+
+// acc[a][b] += sum_c X[xi + a][c] Y[yi + b][c] over c = 0, 1, ..., n - 1
+// (rows at pitch ld; rows past n read row n - 1).
+__device__ __forceinline__ void tile_nt(float (&acc)[4][4], const float* X, const float* Y, int ld, int n,
+                                        int xi, int yi) {
+  const float* A[4];
+  const float* Bq[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    A[a] = X + min(xi + a, n - 1) * ld;
+    Bq[a] = Y + min(yi + a, n - 1) * ld;
+  }
+#pragma unroll 2
+  for (int c = 0; c < n; ++c) {
+    float u[4], w[4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) { u[a] = A[a][c]; w[a] = Bq[a][c]; }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) acc[a][b] += u[a] * w[b];
+    }
+  }
+}
+
+// The second half of chol_solve_vec: C^T u = r in place for the lane's
+// entries r0 = r[lane] and r1 = r[lane + 32], C lower at pitch ld, each
+// solved entry broadcast from its lane by shuffle.
+__device__ void back_solve_vec(const float* C, int ld, float& r0, float& r1, int n, int lane) {
+  for (int j = n - 1; j >= 0; --j) {
+    const float* Cj = C + j * ld;
+    const float rinv = __fdividef(1.0f, Cj[j]);
+    const float mine = (j & 32) ? r1 : r0;
+    const float uj = __shfl_sync(kFull, mine, j & 31) * rinv;
+    if (lane < j) r0 -= Cj[lane] * uj;
+    if (lane + 32 < j) r1 -= Cj[lane + 32] * uj;
+    if (lane == (j & 31)) {
+      if (j & 32) r1 = uj; else r0 = uj;
+    }
+  }
+}
+
+struct Problem {
+  const float* __restrict__ D;
+  const float* __restrict__ L;
+  const float* __restrict__ b;
+  const float* __restrict__ lm;
+  float* x;
+  float* scratch;
+  int K, n, Lv;
+};
+
+// Phase l's item (s, k), on the whole block.
+__device__ void phase_item(const Problem& p, int s, int k, int l, float* sm, int tid) {
+  const int K = p.K, n = p.n, lds = cs_pitch(n), ldr = n + 1, lane = tid & 31;
+  const size_t nn = (size_t)n * n;
+  float* const S = sm;
+  float* const R = S + n * lds;  // rows 0..n-1: W_k^T; n..2n-1: V_k^T; 2n: b'_k -> y_k
+  float* const Ar = R + round4((2 * n + 1) * ldr);  // W^T of the right neighbour e' = k + h
+  float* const Br = Ar + n * ldr;                   // V^T of e'
+  float* const Al = Br + n * ldr;                   // W^T of the left neighbour e = k - h
+  float* const Bl = Al + n * ldr;                   // V^T of e
+  float* const yr = Bl + n * ldr;
+  float* const yl = yr + n;
+  float* const yk = R + 2 * n * ldr;
+  float* const xs = p.x + (size_t)s * K * n;
+  float* const Cs = p.scratch + (size_t)s * scenario_floats(K, n);
+  float* const Ws = Cs + K * nn;
+  float* const Vs = Ws + K * nn;
+  float* const Ds = Vs + K * nn;
+  const bool last = l == p.Lv;
+  const bool elim = last || ((k >> l) & 1);
+  const int step = 1 << l, h = step >> 1;
+  const bool left = elim && k > 0, right = elim && k + step < K;  // neighbours a, c at level l
+  const bool er = l > 0 && k + h < K, el = l > 0 && k > 0;       // neighbours eliminated at level l - 1
+
+  copy_rows(S, lds, l <= 1 ? p.D + ((size_t)s * K + k) * nn : Ds + (k >> 2) * nn, n, tid, kThreads);
+  copy_span(yk, l <= 1 ? p.b + ((size_t)s * K + k) * n : xs + (size_t)k * n, n, tid, kThreads);
+  if (l == 0) {
+    const float* Lb = p.L + (size_t)s * (K - 1) * nn;
+    if (left) copy_pitched(R, ldr, Lb + (k - 1) * nn, n, true, tid, kThreads);      // H[k][k-1]^T = L_{k-1}^T
+    if (right) copy_pitched(R + n * ldr, ldr, Lb + k * nn, n, false, tid, kThreads);  // H[k+1][k] = L_k
+  } else {
+    if (er) {
+      copy_pitched(Ar, ldr, Ws + (k + h) * nn, n, false, tid, kThreads);
+      copy_span(yr, xs + (size_t)(k + h) * n, n, tid, kThreads);
+      if (right) copy_pitched(Br, ldr, Vs + (k + h) * nn, n, false, tid, kThreads);
+    }
+    if (el) {
+      copy_pitched(Bl, ldr, Vs + (k - h) * nn, n, false, tid, kThreads);
+      copy_span(yl, xs + (size_t)(k - h) * n, n, tid, kThreads);
+      if (left) copy_pitched(Al, ldr, Ws + (k - h) * nn, n, false, tid, kThreads);
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
+
+  if (l > 0) {
+    // Level l - 1's updates, on 4 x 4 tiles: the lower triangle of
+    // D'_k = D_k - W_e'^T W_e' - V_e^T V_e (damped first at level 1, where
+    // D_k is the original), the rows -W_e^T V_e = H'[k][a]^T and
+    // -V_e'^T W_e' = H'[c][k], and b'_k = b_k - W_e'^T y_e' - V_e^T y_e.
+    const int T = (n + 3) >> 2, nS = T * (T + 1) / 2, nW = left ? T * T : 0, nV = right ? T * T : 0;
+    const bool damp = l == 1 && p.lm != nullptr;
+    for (int job = tid; job < nS + nW + nV + n; job += kThreads) {
+      if (job < nS + nW + nV) {
+        float acc[4][4] = {};
+        int ti, tj;
+        float* out;
+        if (job < nS) {
+          ti = 0, tj = job;
+          while (tj > ti) { tj -= ti + 1; ++ti; }
+          if (er) tile_nt(acc, Ar, Ar, ldr, n, 4 * ti, 4 * tj);
+          if (el) tile_nt(acc, Bl, Bl, ldr, n, 4 * ti, 4 * tj);
+#pragma unroll
+          for (int a = 0; a < 4; ++a) {
+#pragma unroll
+            for (int b = 0; b < 4; ++b) {
+              const int i = 4 * ti + a, j = 4 * tj + b;
+              if (i < n && j < n) {
+                const float d = S[i * lds + j];
+                S[i * lds + j] = (damp && i == j ? damped(d, p.lm[s]) : d) - acc[a][b];
+              }
+            }
+          }
+          continue;
+        }
+        if (job < nS + nW) {
+          ti = (job - nS) / T, tj = (job - nS) - ti * T;
+          tile_nt(acc, Al, Bl, ldr, n, 4 * ti, 4 * tj);
+          out = R;
+        } else {
+          ti = (job - nS - nW) / T, tj = (job - nS - nW) - ti * T;
+          tile_nt(acc, Br, Ar, ldr, n, 4 * ti, 4 * tj);
+          out = R + n * ldr;
+        }
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int i = 4 * ti + a, j = 4 * tj + b;
+            if (i < n && j < n) out[i * ldr + j] = -acc[a][b];
+          }
+        }
+      } else {
+        const int i = job - nS - nW - nV;
+        float v = yk[i];
+        if (er) {
+          float sum = 0.f;
+          for (int c = 0; c < n; ++c) sum += Ar[i * ldr + c] * yr[c];
+          v -= sum;
+        }
+        if (el) {
+          float sum = 0.f;
+          for (int c = 0; c < n; ++c) sum += Bl[i * ldr + c] * yl[c];
+          v -= sum;
+        }
+        yk[i] = v;
+      }
+    }
+    __syncthreads();
+  }
+
+  if (!elim) {  // a kept knot: D'_k and b'_k wait for the next level
+    float* const Dk = Ds + (k >> 2) * nn;
+    for (int e = tid; e < (int)nn; e += kThreads) {
+      const int i = e / n;
+      Dk[e] = S[i * lds + e - i * n];
+    }
+    for (int i = tid; i < n; i += kThreads) xs[(size_t)k * n + i] = yk[i];
+    return;
+  }
+
+  // C_k on warp 0 and, behind it on warps 1..row_warps, the row solves
+  // against it, W_k^T, V_k^T and y_k in place, one row a thread: column
+  // block jb of the Cholesky is handed on at named barrier 1 + group(jb), in
+  // at most kNamedBarriers groups of blocks, as in the small kernel.
+  const int row_warps = (2 * n + 32) / 32, T = (n + 3) >> 2, G = min(T, kNamedBarriers);
+  const int hand_count = 32 * (1 + row_warps);
+  auto group = [=](int jb) { return jb * G / T; };
+  if (tid < 32) {
+    // No barrier after the damping: lane i damps S[i][i], which the first
+    // column block reads on lane i (i < 4), a later one after the __syncwarp
+    // that ends the first.
+    if (l == 0 && p.lm) damp_diagonal(S, n, lds, p.lm[s], lane, 32);
+    chol_inplace(S, nullptr, n, lds, lane, [=](int j0) {
+      const int jb = j0 >> 2;
+      if (jb == T - 1 || group(jb + 1) != group(jb)) bar_arrive(1 + group(jb), hand_count);
+    });
+  } else if (tid < hand_count) {
+    const int r = tid - 32;
+    const bool mine = r <= 2 * n && (r < n ? left : r < 2 * n ? right : true);
+    float* const row = R + min(r, 2 * n) * ldr;
+    for (int j0 = 0; j0 < n; j0 += 4) {
+      const int jb = j0 >> 2;
+      // bar.sync is .aligned: the whole warp, threads without a row too,
+      // reaches it together (which the CPU stand-in, whose named barriers
+      // count threads, cannot show).
+      __syncwarp();
+      if (jb == 0 || group(jb - 1) != group(jb)) bar_sync(1 + group(jb), hand_count);
+      if (mine) forward_row_block(row, row, S, n, lds, j0);
+    }
+  }
+  __syncthreads();
+  if (!last) {
+    float* const Ck = Cs + k * nn;  // C_k for the back pass
+    for (int e = tid; e < (int)nn; e += kThreads) {
+      const int i = e / n, j = e - i * n;
+      Ck[e] = S[i * lds + j];
+      if (left) Ws[k * nn + e] = R[i * ldr + j];
+      if (right) Vs[k * nn + e] = R[(n + i) * ldr + j];
+    }
+    for (int i = tid; i < n; i += kThreads) xs[(size_t)k * n + i] = yk[i];
+    return;
+  }
+  if (tid < 32) {  // the last knot, 0: x_0 = C_0^-T y_0
+    float r0 = lane < n ? yk[lane] : 0.f, r1 = lane + 32 < n ? yk[lane + 32] : 0.f;
+    back_solve_vec(S, lds, r0, r1, n, lane);
+    if (lane < n) xs[lane] = r0;
+    if (lane + 32 < n) xs[lane + 32] = r1;
+  }
+}
+
+// The back pass's item (s, k) at level l, on one warp with its shared
+// memory at sm: x_k = C_k^-T (y_k - W_k x_{k-2^l} - V_k x_{k+2^l}).
+__device__ void back_item(const Problem& p, int s, int k, int l, float* sm, int lane) {
+  const int K = p.K, n = p.n, lds = cs_pitch(n), step = 1 << l;
+  const size_t nn = (size_t)n * n;
+  float* const Cw = sm;
+  float* const xa = Cw + n * lds;
+  float* const xc = xa + n;
+  float* const xs = p.x + (size_t)s * K * n;
+  const float* const Cs = p.scratch + (size_t)s * scenario_floats(K, n);
+  const float* const Wk = Cs + (K + k) * nn;
+  const float* const Vk = Cs + (2 * K + k) * nn;
+  const bool right = k + step < K;
+  copy_rows(Cw, lds, Cs + k * nn, n, lane, 32);
+  copy_span(xa, xs + (size_t)(k - step) * n, n, lane, 32);
+  if (right) copy_span(xc, xs + (size_t)(k + step) * n, n, lane, 32);
+  __pipeline_commit();
+  const float* const y = xs + (size_t)k * n;
+  float r0 = lane < n ? y[lane] : 0.f, r1 = lane + 32 < n ? y[lane + 32] : 0.f;
+  cp_wait();
+  if (lane < n) {
+    const int j1 = lane + 32 < n ? lane + 32 : lane;  // a lane without a second entry runs it on its first
+    float s0 = 0.f, s1 = 0.f;
+#pragma unroll 4
+    for (int r = 0; r < n; ++r) {
+      s0 += Wk[r * n + lane] * xa[r];
+      s1 += Wk[r * n + j1] * xa[r];
+    }
+    r0 -= s0;
+    if (lane + 32 < n) r1 -= s1;
+    if (right) {
+      s0 = s1 = 0.f;
+#pragma unroll 4
+      for (int r = 0; r < n; ++r) {
+        s0 += Vk[r * n + lane] * xc[r];
+        s1 += Vk[r * n + j1] * xc[r];
+      }
+      r0 -= s0;
+      if (lane + 32 < n) r1 -= s1;
+    }
+  }
+  back_solve_vec(Cw, lds, r0, r1, n, lane);
+  if (lane < n) xs[(size_t)k * n + lane] = r0;
+  if (lane + 32 < n) xs[(size_t)k * n + lane + 32] = r1;
+  // Every lane's loads of Cw are done before the warp's next copies
+  // overwrite it (a write after a read, which the CPU stand-in, completing
+  // each load at once, cannot show).
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+btd_kernel(const float* __restrict__ D, const float* __restrict__ L, const float* __restrict__ b, float* x,
+           float* scratch, const float* __restrict__ lm, int B, int K, int n) {
+  float* const sm = block_smem();
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const Problem p{D, L, b, lm, x, scratch, K, n, levels(K)};
+  for (int l = 0; l <= p.Lv; ++l) {
+    if (l > 0) grid_sync();
+    const int count = phase_items(K, l, p.Lv);
+    for (long long item = blockIdx.x; item < (long long)B * count; item += gridDim.x) {
+      phase_item(p, (int)(item / count), phase_knot((int)(item % count), l, p.Lv), l, sm, tid);
+      __syncthreads();
+    }
+  }
+  // Warp w of block g takes the items w * gridDim.x + g, ...: the first
+  // ones each on a block of its own.
+  for (int l = p.Lv - 1; l >= 0; --l) {
+    grid_sync();
+    const int count = back_items(K, l);
+    for (long long item = (long long)warp * gridDim.x + blockIdx.x; item < (long long)B * count;
+         item += (long long)gridDim.x * kBackWarps) {
+      const int j = (int)(item % count);
+      back_item(p, (int)(item / count), (2 * j + 1) << l, l, sm + warp * back_floats(n), tid & 31);
+    }
+  }
+}
+
+// Sets the kernel's shared-memory attribute for width n and returns the
+// blocks of a launch at (B, K, n): one per item of the busiest phase, at
+// most as many as the card holds at once (0 on error, with *err set).
+int grid_blocks(int B, int K, int n, cudaError_t* err) {
+  const size_t smem = sizeof(float) * smem_floats(n);
+  *err = cudaFuncSetAttribute(btd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (*err != cudaSuccess) return 0;
+  int per_sm = 0, dev = 0, sms = 0;
+  if ((*err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, btd_kernel, kThreads, smem)) != cudaSuccess ||
+      (*err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (*err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return 0;
+  if (per_sm < 1) {
+    *err = cudaErrorInvalidConfiguration;
+    return 0;
+  }
+  const long long want = (long long)B * ((K + 1) / 2), cap = (long long)per_sm * sms;
+  return (int)(want < cap ? want : cap);
+}
+
+}  // namespace reduce
+}  // namespace
+
 extern "C" size_t btd_smem_bytes(int n) {
   return sizeof(float) * (size_t)kWarps * warp_floats(n);
 }
@@ -1135,6 +1590,59 @@ extern "C" int btd_small_solve_f32(const void* D, const void* L, const void* b, 
   void* args[] = {&Df, &Lf, &bf, &xf, &lmf, &K, &n};
   err = cudaLaunchKernel(btd_small_kernel, dim3(B), dim3(kSmallThreads), args, smem,
                          static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return (int)(err != cudaSuccess ? err : last);
+}
+
+// Scratch floats of one launch of the long-horizon kernel at (B, K, n):
+// C_k, W_k^T, V_k^T and the kept D'_k of every scenario.
+extern "C" size_t btd_reduce_scratch_floats(int B, int K, int n) {
+  return B > 0 && K > 0 && n > 0 ? (size_t)B * reduce::scenario_floats(K, n) : 0;
+}
+
+// Blocks of the long-horizon kernel's cooperative launch at (B, K, n) on the
+// current device, or minus a CUDA error code.
+extern "C" int btd_reduce_grid(int B, int K, int n) {
+  if (B <= 0 || K <= 0 || n <= 0 || n > kMaxN) return -(int)cudaErrorInvalidValue;
+  cudaError_t err;
+  const int grid = reduce::grid_blocks(B, K, n, &err);
+  return grid > 0 ? grid : -(int)err;
+}
+
+// Which kernel a solve at (B, K, n) takes when the small kernel's shared
+// memory cannot hold K's factors: 1 the long-horizon kernel
+// (btd_reduce_solve_f32), while B is at most reduce::kMaxBatch; 0
+// btd_kernel; 0 too where the small kernel's shared memory holds them;
+// minus a CUDA error code on error.
+extern "C" int btd_pick_reduce(int B, int K, int n) {
+  if (B <= 0 || K <= 0 || n <= 0 || n > kMaxN) return -(int)cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess)
+    return -(int)err;
+  return B <= reduce::kMaxBatch && btd_small_smem_bytes(n, K) > (size_t)optin;
+}
+
+// Launches one solve by the long-horizon kernel, a cooperative launch on
+// `stream`; returns the launch's CUDA error (0 when it was accepted).  Its
+// arguments are btd_solve_f32's, but C is its scratch: 16-byte aligned,
+// btd_reduce_scratch_floats(B, K, n) floats.
+extern "C" int btd_reduce_solve_f32(const void* D, const void* L, const void* b, void* x, void* C, int B,
+                                    int K, int n, void* stream, const void* lm) {
+  if (B <= 0 || K <= 0 || n <= 0 || n > kMaxN || (uintptr_t)C % 16 != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  const int grid = reduce::grid_blocks(B, K, n, &err);
+  if (grid == 0) return (int)err;
+  const float* Df = static_cast<const float*>(D);
+  const float* Lf = static_cast<const float*>(L);
+  const float* bf = static_cast<const float*>(b);
+  float* xf = static_cast<float*>(x);
+  float* Cf = static_cast<float*>(C);
+  const float* lmf = static_cast<const float*>(lm);
+  void* args[] = {&Df, &Lf, &bf, &xf, &Cf, &lmf, &B, &K, &n};
+  err = cudaLaunchCooperativeKernel(reduce::btd_kernel, dim3(grid), dim3(reduce::kThreads), args,
+                                    sizeof(float) * reduce::smem_floats(n), static_cast<cudaStream_t>(stream));
   const cudaError_t last = cudaGetLastError();
   return (int)(err != cudaSuccess ? err : last);
 }

@@ -26,6 +26,13 @@
 // reads shared memory, in one of the two orders, before the thread that
 // writes it has run.
 //
+// A cooperative launch (cudaLaunchCooperativeKernel) runs all of its
+// blocks at once, each with its own shared memory (block_smem()), and
+// grid_sync() is a barrier of every thread of the grid; a grid larger than
+// the stand-in's card holds at once is refused, as the card refuses it.
+// With QTOS_EMU_THREAD_ORDER the threads of the whole grid run one at a
+// time, block by block in the order of their numbers.
+//
 // A launch through the typed cudaLaunchKernel needs nothing more.  For one
 // through the untyped (const void*) launch the including file defines
 // EmuKernelSig, the kernel's signature, before it includes this header; a
@@ -73,7 +80,12 @@ inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidConfiguration = 9 };
+enum cudaError_t {
+  cudaSuccess = 0,
+  cudaErrorInvalidValue = 1,
+  cudaErrorInvalidConfiguration = 9,
+  cudaErrorCooperativeLaunchTooLarge = 82
+};
 enum cudaFuncAttribute {
   cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
   cudaFuncAttributePreferredSharedMemoryCarveout = 9
@@ -82,6 +94,11 @@ enum { cudaSharedmemCarveoutMaxShared = 100 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16, cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 
 inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
+// The thread's number among the threads that run together (threadIdx.x, or
+// in a cooperative launch blockIdx.x * blockDim.x + threadIdx.x), its
+// warp's number among their warps, and its block's number among their
+// blocks (0 but in a cooperative launch).
+inline thread_local int emu_tid = 0, emu_wid = 0, emu_bid = 0;
 
 // A barrier of `size` threads that aborts when one of them does not come.
 struct EmuBarrier {
@@ -115,17 +132,20 @@ inline thread_local EmuWarp* emu_warp = nullptr;
 inline thread_local EmuBarrier* emu_block = nullptr;
 
 // The turns of a block's threads when they run one at a time
-// (QTOS_EMU_THREAD_ORDER): `turn` is the thread that may run.  A thread
-// passes the turn on when it waits at a barrier and when it ends; it goes to
-// the next thread in the launch's order (ascending or descending
-// threadIdx.x, cyclically) that is not waiting, so after the last thread of
-// a block barrier arrives the first one runs again.  Every barrier is a
-// group of threads keyed by what it joins: kBlockKey the block
-// (__syncthreads, which counts the threads still running), kWarpKey + w the
+// (QTOS_EMU_THREAD_ORDER): `turn` is the thread that may run (by emu_tid).
+// A thread passes the turn on when it waits at a barrier and when it ends;
+// it goes to the next thread in the launch's order (ascending or descending
+// emu_tid, cyclically) that is not waiting, so after the last thread of a
+// block barrier arrives the first one runs again.  Every barrier is a
+// group of threads keyed by what it joins: block_key(b) the block b
+// (__syncthreads, which counts its threads still running), kWarpKey + w the
 // 32 threads of warp w (__syncwarp, and the shuffles' exchanges),
-// kNamedKey + id the named barrier id (bar.sync, bar.arrive).
+// kNamedKey + 16 b + id the named barrier id of block b (bar.sync,
+// bar.arrive), kGridKey every thread (grid_sync, which counts the threads
+// still running).
 struct EmuTurns {
-  static constexpr long kBlockKey = 0, kWarpKey = 1, kNamedKey = 1 << 20;
+  static constexpr long kWarpKey = 1, kNamedKey = 1L << 20, kGridKey = 1L << 40;
+  static long block_key(int b) { return -1 - (long)b; }
   enum State : char { kRun, kWait, kDone };
   struct Group {
     std::vector<int> waiting;
@@ -133,7 +153,8 @@ struct EmuTurns {
   };
   std::mutex m;
   std::unique_ptr<std::condition_variable[]> cv;  // one per thread: a pass wakes only its thread
-  int size = 0, turn = -1, alive = 0, step = 1;
+  int size = 0, turn = -1, alive = 0, step = 1, block = 0;  // block: threads per block
+  std::vector<int> alive_in;                                  // threads still running, per block
   std::vector<char> state;
   std::map<long, Group> groups;
 
@@ -180,11 +201,12 @@ struct EmuTurns {
     wait_turn(lk, t);
   }
   // Thread t arrives at the barrier `key` of `count` threads (0: every
-  // thread still running) and waits until the group is complete.
+  // thread of its block still running; -1: every thread still running) and
+  // waits until the group is complete.
   void barrier(int t, long key, int count) {
     std::unique_lock<std::mutex> lk(m);
     Group& g = groups[key];
-    if (++g.arrived >= (count ? count : alive)) {
+    if (++g.arrived >= (count > 0 ? count : count == 0 ? alive_in[t / block] : alive)) {
       release(key);
     } else {
       g.waiting.push_back(t);
@@ -201,8 +223,12 @@ struct EmuTurns {
     std::unique_lock<std::mutex> lk(m);
     state[t] = kDone;
     --alive;
-    auto it = groups.find(kBlockKey);
-    if (it != groups.end() && it->second.arrived >= alive) release(kBlockKey);
+    const int b = t / block;
+    --alive_in[b];
+    auto it = groups.find(block_key(b));
+    if (it != groups.end() && it->second.arrived >= alive_in[b]) release(block_key(b));
+    it = groups.find(kGridKey);
+    if (it != groups.end() && it->second.arrived >= alive) release(kGridKey);
     turn = after(t);
     if (turn >= 0) {
       cv[turn].notify_one();
@@ -245,7 +271,7 @@ inline thread_local EmuNamedBarrier* emu_named = nullptr;
 
 inline void emu_warp_wait() {
   if (emu_turns)
-    emu_turns->barrier((int)threadIdx.x, EmuTurns::kWarpKey + threadIdx.x / 32, 32);
+    emu_turns->barrier(emu_tid, EmuTurns::kWarpKey + emu_wid, 32);
   else
     emu_warp->wait();
 }
@@ -255,7 +281,7 @@ inline void __syncwarp(unsigned = 0xffffffffu) { emu_warp_wait(); }
 // shuffles while the others wait there.
 inline void __syncthreads() {
   if (emu_turns)
-    emu_turns->barrier((int)threadIdx.x, EmuTurns::kBlockKey, 0);
+    emu_turns->barrier(emu_tid, EmuTurns::block_key(emu_bid), 0);
   else
     emu_block->wait(600, "a block barrier (a thread that missed __syncthreads?)");
 }
@@ -265,17 +291,35 @@ inline void __syncthreads() {
 // On the card these are the PTX instructions of the same names.
 inline void bar_sync(int id, int count) {
   if (emu_turns)
-    emu_turns->barrier((int)threadIdx.x, EmuTurns::kNamedKey + id, count);
+    emu_turns->barrier(emu_tid, EmuTurns::kNamedKey + kEmuNamedBarriers * emu_bid + id, count);
   else
     emu_named[id].arrive(count, true);
 }
 inline void bar_arrive(int id, int count) {
   if (emu_turns)
-    emu_turns->arrive(EmuTurns::kNamedKey + id, count);
+    emu_turns->arrive(EmuTurns::kNamedKey + kEmuNamedBarriers * emu_bid + id, count);
   else
     emu_named[id].arrive(count, false);
 }
 #define QTOS_EMU_NAMED_BARRIERS 1
+
+// The grid's barrier in a cooperative launch (cooperative_groups'
+// this_grid().sync() on the card).
+inline thread_local EmuBarrier* emu_grid = nullptr;
+inline void grid_sync() {
+  if (emu_turns)
+    emu_turns->barrier(emu_tid, EmuTurns::kGridKey, -1);
+  else
+    emu_grid->wait(600, "the grid's barrier (a thread that missed grid_sync?)");
+}
+#define QTOS_EMU_GRID_SYNC 1
+
+// The block's dynamic shared memory, for a kernel that reads it through
+// block_smem() (the launch's `emu_smem_base`, or in a cooperative launch
+// the block's own array).
+inline thread_local float* emu_block_smem = nullptr;
+inline float* block_smem() { return emu_block_smem; }
+#define QTOS_EMU_BLOCK_SMEM 1
 
 inline float __shfl_sync(unsigned, float v, int src) {
   emu_warp_wait();
@@ -395,7 +439,8 @@ cudaError_t emu_launch(void (*f)(A...), dim3 grid, dim3 block, void** args, size
     std::unique_ptr<EmuNamedBarrier[]> named(new EmuNamedBarrier[kEmuNamedBarriers]);
     EmuTurns turns;
     if (order != 0) {
-      turns.size = turns.alive = (int)block.x;
+      turns.size = turns.alive = turns.block = (int)block.x;
+      turns.alive_in.assign(1, (int)block.x);
       turns.step = order;
       turns.state.assign(block.x, EmuTurns::kRun);
       turns.cv.reset(new std::condition_variable[block.x]);
@@ -411,6 +456,10 @@ cudaError_t emu_launch(void (*f)(A...), dim3 grid, dim3 block, void** args, size
         emu_warp = &warps[t / 32];
         emu_block = &block_barrier;
         emu_named = named.get();
+        emu_tid = (int)t;
+        emu_wid = (int)t / 32;
+        emu_bid = 0;
+        emu_block_smem = emu_smem_base;
         emu_turns = turns.size ? &turns : nullptr;
         if (emu_turns) emu_turns->start((int)t);
         emu_call(f, args, std::index_sequence_for<A...>{});
@@ -432,6 +481,65 @@ template <class... A>
 cudaError_t cudaLaunchKernel(void (*f)(A...), dim3 grid, dim3 block, void** args, size_t smem,
                              cudaStream_t) {
   return emu_launch(f, grid, block, args, smem);
+}
+
+// A cooperative launch: every block of the grid at once (a grid larger
+// than the stand-in's card holds at once is refused), each with its own
+// shared memory, NaN at the start, and grid_sync() across all of them.
+template <class... A>
+cudaError_t cudaLaunchCooperativeKernel(void (*f)(A...), dim3 grid, dim3 block, void** args, size_t smem,
+                                        cudaStream_t) {
+  if (smem > kEmuSmemBytes || block.x % 32 != 0) return cudaErrorInvalidConfiguration;
+  if (grid.x > (unsigned)(kEmuSms * kEmuBlocksPerSm)) return cudaErrorCooperativeLaunchTooLarge;
+  const char* env = std::getenv("QTOS_EMU_THREAD_ORDER");
+  const int order = env == nullptr || env[0] == '\0' ? 0 : (std::atoi(env) < 0 ? -1 : 1);
+  const int nb = (int)grid.x, bs = (int)block.x, total = nb * bs;
+  std::vector<std::vector<float4>> smem_of(nb, std::vector<float4>(kEmuSmemBytes / sizeof(float4)));
+  for (auto& m : smem_of) std::memset(m.data(), 0xff, kEmuSmemBytes);
+  std::vector<EmuWarp> warps(total / 32);
+  std::vector<EmuBarrier> blocks(nb);
+  for (auto& b : blocks) b.size = bs;
+  EmuBarrier grid_barrier;
+  grid_barrier.size = total;
+  std::unique_ptr<EmuNamedBarrier[]> named(new EmuNamedBarrier[(size_t)nb * kEmuNamedBarriers]);
+  EmuTurns turns;
+  if (order != 0) {
+    turns.size = turns.alive = total;
+    turns.block = bs;
+    turns.alive_in.assign(nb, bs);
+    turns.step = order;
+    turns.state.assign(total, EmuTurns::kRun);
+    turns.cv.reset(new std::condition_variable[total]);
+    turns.turn = turns.first();
+  }
+  std::vector<std::thread> threads;
+  for (int t = 0; t < total; ++t) {
+    threads.emplace_back([&, t] {
+      const int bx = t / bs;
+      threadIdx = dim3(t % bs);
+      blockIdx = dim3(bx);
+      blockDim = block;
+      gridDim = grid;
+      emu_warp = &warps[t / 32];
+      emu_block = &blocks[bx];
+      emu_named = named.get() + (size_t)bx * kEmuNamedBarriers;
+      emu_grid = &grid_barrier;
+      emu_tid = t;
+      emu_wid = t / 32;
+      emu_bid = bx;
+      emu_block_smem = reinterpret_cast<float*>(smem_of[bx].data());
+      emu_turns = turns.size ? &turns : nullptr;
+      if (emu_turns) emu_turns->start(t);
+      emu_call(f, args, std::index_sequence_for<A...>{});
+      if (!emu_pipe.open.empty() || !emu_pipe.batches.empty()) {
+        std::fprintf(stderr, "cuda_emu: a thread ended with cp.async copies not waited for\n");
+        std::abort();
+      }
+      if (emu_turns) emu_turns->finish(t);
+    });
+  }
+  for (auto& th : threads) th.join();
+  return cudaSuccess;
 }
 
 #ifndef EMU_TYPED_LAUNCH_ONLY

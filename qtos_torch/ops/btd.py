@@ -7,17 +7,25 @@ raises); on a CPU tensor it runs the plain version,
 loop's damped system, the damping added by the kernel as each diagonal block
 lands in shared memory: D is read, never written or copied.
 
-The source holds two kernels, built at first use by `qtos_torch.ops.cuda_lib`
-with the common flags only (`-O3`, no `--fmad=false`) and loaded with
-ctypes.  `btd_kernel` solves one scenario per warp, for large batches; its
-scratch holds the factors C_0 .. C_{K-2} of each scenario, lower triangles
-packed: (B, K-1, n(n+1)/2 rounded up to a multiple of 4) floats.  The
-small-batch kernel solves one scenario per block of 8 warps and keeps the
-factors in shared memory.  The library's `btd_pick_small` chooses between
-them from (B, K, n) before each launch: the small kernel while B is at most
-a fixed number of scenarios per SM (the crossover measured on an H100) and
-its factors fit in a block's shared memory.  The two give the same x bit for
-bit.  There is no fallback: a failed launch of either raises.
+The source holds three kernels, built at first use by
+`qtos_torch.ops.cuda_lib` with the common flags only (`-O3`, no
+`--fmad=false`) and loaded with ctypes.  `btd_kernel` solves one scenario
+per warp, for large batches; its scratch holds the factors C_0 .. C_{K-2} of
+each scenario, lower triangles packed: (B, K-1, n(n+1)/2 rounded up to a
+multiple of 4) floats.  The small-batch kernel solves one scenario per block
+of 8 warps and keeps the factors in shared memory.  The long-horizon kernel
+(`reduce::btd_kernel`) solves a few scenarios whose factors do not fit there
+by block cyclic reduction, each scenario's knots spread over the card, in one
+cooperative launch; its scratch is `btd_reduce_scratch_floats(B, K, n)`
+floats.  The library chooses from (B, K, n) before each launch:
+`btd_pick_small` the small kernel while B is at most a fixed number of
+scenarios per SM (the crossover measured on an H100) and its factors fit in
+a block's shared memory; past that shared memory `btd_pick_reduce` the
+long-horizon kernel while B is at most its own crossover with `btd_kernel`
+(measured on an H100 at K = 154); else `btd_kernel`.  The first two give the
+same x bit for bit; the long-horizon kernel eliminates the knots in another
+order, so its x differs from theirs by rounding.  There is no fallback: a
+failed launch of any of them raises.
 """
 
 from __future__ import annotations
@@ -38,11 +46,14 @@ def load_library(path: str):
     the same source in the tests) with its functions' argument types set."""
     lib = ctypes.CDLL(path)
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    for fn in (lib.btd_solve_f32, lib.btd_small_solve_f32):
+    for fn in (lib.btd_solve_f32, lib.btd_small_solve_f32, lib.btd_reduce_solve_f32):
         fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp]
         fn.restype = ci
-    lib.btd_pick_small.argtypes = [ci] * 3
-    lib.btd_pick_small.restype = ci
+    for fn in (lib.btd_pick_small, lib.btd_pick_reduce, lib.btd_reduce_grid):
+        fn.argtypes = [ci] * 3
+        fn.restype = ci
+    lib.btd_reduce_scratch_floats.argtypes = [ci] * 3
+    lib.btd_reduce_scratch_floats.restype = ctypes.c_size_t
     lib.btd_resident_warps.argtypes = [ci]
     lib.btd_resident_warps.restype = ci
     lib.btd_smem_bytes.argtypes = [ci]
@@ -74,6 +85,21 @@ def picks_small(B: int, K: int, n: int) -> bool:
     if pick < 0:
         raise RuntimeError(f"btd kernel choice failed at ({B}, {K}, {n}): CUDA error {-pick}")
     return pick == 1
+
+
+def picks_reduce(B: int, K: int, n: int) -> bool:
+    """Whether `btd_solve` at (B, K, n) on the current CUDA device, where the
+    small-batch kernel's shared memory cannot hold K's factors, launches the
+    long-horizon kernel (else `btd_kernel`)."""
+    pick = KERNEL.load().btd_pick_reduce(B, K, n)
+    if pick < 0:
+        raise RuntimeError(f"btd kernel choice failed at ({B}, {K}, {n}): CUDA error {-pick}")
+    return pick == 1
+
+
+def reduce_scratch(B: int, K: int, n: int, device) -> torch.Tensor:
+    """The long-horizon kernel's scratch for a solve at (B, K, n)."""
+    return torch.empty((KERNEL.load().btd_reduce_scratch_floats(B, K, n),), dtype=torch.float32, device=device)
 
 
 def work(B: int, K: int, n: int) -> tuple:
@@ -128,9 +154,11 @@ def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor,
 
     `btd_solve.launches` counts kernel launches (one per call on CUDA),
     `btd_solve.small_launches` those of them that went to the small-batch
-    kernel, `btd_solve.long_launches` those that went to `btd_kernel` at a
-    batch the small kernel takes because the horizon's factors do not fit
-    its shared memory, `btd_solve.damped_launches` those that took `lm`.
+    kernel, `btd_solve.long_launches` those that went past it at a batch it
+    takes because the horizon's factors do not fit its shared memory (to the
+    long-horizon kernel, or to `btd_kernel` past that kernel's crossover),
+    `btd_solve.reduce_launches` those that went to the long-horizon kernel,
+    `btd_solve.damped_launches` those that took `lm`.
     """
     B, K, n = _check(D, L, b, lm)
     if D.device.type == "cpu":
@@ -150,8 +178,11 @@ def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor,
         # btd_kernel only for the horizon: the small kernel takes B at one
         # knot, whose factors always fit, but not K knots' factors
         long = not small and picks_small(B, 1, n)
+        reduce = long and picks_reduce(B, K, n)
         if small:
             launch, scratch = lib.btd_small_solve_f32, None
+        elif reduce:
+            launch, scratch = lib.btd_reduce_solve_f32, reduce_scratch(B, K, n, D.device)
         else:
             launch = lib.btd_solve_f32
             scratch = torch.empty((B, K - 1, lib.btd_packed_floats(n)), dtype=D.dtype, device=D.device)
@@ -160,13 +191,15 @@ def btd_solve(D: torch.Tensor, L: torch.Tensor, b: torch.Tensor,
                      None if scratch is None else scratch.data_ptr(), B, K, n, stream,
                      None if lm is None else lm.data_ptr())
     if err != 0:
-        kind = "small-batch" if small else "btd"
+        kind = "small-batch" if small else "long-horizon" if reduce else "btd"
         raise RuntimeError(f"{kind} kernel launch failed at ({B}, {K}, {n}): CUDA error {err}")
     btd_solve.launches += 1
     btd_solve.small_launches += small
     btd_solve.long_launches += long
+    btd_solve.reduce_launches += reduce
     btd_solve.damped_launches += lm is not None
     return x
 
 
-cuda_lib.count_launches(btd_solve, "launches", "small_launches", "long_launches", "damped_launches")
+cuda_lib.count_launches(btd_solve, "launches", "small_launches", "long_launches", "reduce_launches",
+                        "damped_launches")

@@ -27,6 +27,28 @@ source as operations of the probe:
   (solve_block, called by chol_solve_rows) the owner's four products and
   three FMAs, a shuffle and the next owner's four FMAs.
 
+The long-horizon kernel (block cyclic reduction, `reduce::btd_kernel`) has
+its own floor, `reduce_floor`: its chain is the ceil(log2 K) + 1 phases of
+the forward pass and the ceil(log2 K) levels of the back pass, each on the
+critical path of one item, counted from `phase_item` and `back_item` the
+same way:
+
+- a phase's updates (levels past the first): one 4 x 4 tile of the lower
+  triangle, two sums of n FMAs each (tile_nt) after a load, the subtraction,
+  then the block's barrier;
+- its Cholesky: the small kernel's stage;
+- its row solves, which run behind the Cholesky as in the small kernel:
+  the last column block after the named barrier that hands it on, then the
+  block's barrier;
+- a back level: the two sums W_k x_a and V_k x_c (n FMAs each, side by side,
+  and two subtractions) after a load, then the n steps of C^T u = r
+  (back_solve_vec), each a shuffle, a product and an FMA; the last phase
+  ends in one such triangular solve too.
+
+The grid barrier between two phases and the round trips to L2 that start
+each item are not operations of the probe: the floor leaves them out, so
+what a launch takes beyond it is theirs and the issue slots'.
+
 An FMA is taken at the latency of `fadd` (the probe is built with
 --fmad=false, and on Hopper an FMA, an add and a product have one latency);
 "simple" (a product, a max, an add) at the slower of `fadd` and `fmul`.
@@ -53,6 +75,10 @@ SOURCE_CALLS = {
     "chol_solve_rows": dict(),
     "solve_block": dict(shfl=1),
     "btd_small_kernel": dict(bar=5),
+    "phase_item": dict(bar=5),
+    "tile_nt": dict(),
+    "back_item": dict(),
+    "back_solve_vec": dict(shfl=1),
 }
 
 
@@ -103,3 +129,42 @@ def source_calls(text: str, name: str) -> dict:
         if n:
             counts[op] = counts.get(op, 0) + n
     return counts
+
+
+def levels(K: int) -> int:
+    """The long-horizon kernel's levels below the last: the least Lv with
+    2^Lv >= K."""
+    return max(K - 1, 0).bit_length()
+
+
+def reduce_stage_ops(n: int) -> dict:
+    """Operations on the chain of each stage of the long-horizon kernel at
+    width n, per phase or back level that runs it."""
+    T = math.ceil(n / 4)
+    return {
+        "updates": dict(fma=2 * n, simple=1, lds=1, bar=1),
+        "cholesky": stage_ops(n)["cholesky"],
+        "row solves": stage_ops(n)["row solves, last block"],
+        "W x + V x": dict(fma=n, simple=2, lds=1),
+        "C^T solve": dict(fma=n, simple=n, shfl=n),
+    }
+
+
+def reduce_runs(stage: str, K: int) -> int:
+    """How many phases or back levels of a solve at K knots run `stage` on
+    the chain: every phase factors and solves rows, every one past the first
+    updates, every back level (and the last phase) solves C^T u = r."""
+    Lv = levels(K)
+    return {"updates": Lv, "cholesky": Lv + 1, "row solves": Lv + 1, "W x + V x": Lv, "C^T solve": Lv + 1}[stage]
+
+
+def reduce_floor(cycles: dict, K: int, n: int, clock_mhz: float) -> tuple:
+    """The long-horizon kernel's floor for one solve at (K, n), at the probe's
+    `cycles` per operation and the SM clock in MHz, without its grid barriers
+    and L2 round trips.  Returns (ms, cycles, cycles per stage over the whole
+    solve)."""
+    per = dict(cycles, fma=cycles["fadd"], simple=max(cycles["fadd"], cycles["fmul"]))
+    stages = {stage: reduce_runs(stage, K) * sum(c * per[op] for op, c in ops.items())
+              for stage, ops in reduce_stage_ops(n).items()}
+    total = sum(stages.values())
+    return total / (clock_mhz * 1e3), total, stages

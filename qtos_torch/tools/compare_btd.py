@@ -1,13 +1,14 @@
 r"""Build several versions of the BTD kernel source and time them in turns on
 one CUDA card.
 
-    python3 -m qtos_torch.tools.compare_btd [--batches B,B,...] [--no-bench] [--damped] \
+    python3 -m qtos_torch.tools.compare_btd [--batches B,B,...] [--horizon K] [--no-bench] [--damped] \
         NAME=PATH[!REGEX[!TEXT]] ...
 
 Each version of `qtos_torch/csrc/btd.cu` is given as `qtos_torch.tools.kit`
 takes them (PATH, or an ablated copy of it) and must have the current C
-entry points of `btd.cu` (`btd_solve_f32` and `btd_small_solve_f32`, each
-taking the LM damping as its last argument, and `btd_packed_floats`); it is
+entry points of `btd.cu` (`btd_solve_f32`, `btd_small_solve_f32` and
+`btd_reduce_solve_f32`, each taking the LM damping as its last argument, and
+`btd_packed_floats` and `btd_reduce_scratch_floats`); it is
 built with the kernel's own flags (`qtos_torch.ops.btd.KERNEL`).  For
 example
 
@@ -16,7 +17,9 @@ example
 
 Each kernel of a version is timed on its own: `NAME:warp` is `btd_kernel`
 (through `btd_solve_f32`), `NAME:small` the small-batch kernel (through
-`btd_small_solve_f32`), launched undamped; with `--damped` each kernel is
+`btd_small_solve_f32`), `NAME:reduce` the long-horizon kernel (through
+`btd_reduce_solve_f32`, which eliminates in another order: its x is not
+btd_kernel's bit for bit), launched undamped; with `--damped` each kernel is
 also timed damped by an lm of the batch's size, as `NAME:warp+lm` and
 `NAME:small+lm`, and held bit for bit to the first kernel's x on the
 damped copy D + diag_embed(lm * diag(D) + 1e-8).  The script prints each
@@ -24,10 +27,12 @@ build's registers and spills and, where the toolkit has `cuobjdump`, each
 kernel's SASS instructions and
 local-memory instructions (LDL, STL); each kernel's max |x - plain| at a few
 shapes and whether its x equals the first kernel's bit for bit there; its time
-at (B, 41, 36) for every B of `--batches` (default 1, 2, 4, 20, 64, 132, 264,
-1024, 2640), CUDA events over 20 launches, the kernels in the order k1, k2,
-..., k2, k1 at each B; and, unless `--no-bench`, its time at the bench shape
-(8192, 41, 36) in the same turns; then the card's name, power limit and
+at (B, K, 36) for every B of `--batches` (default 1, 2, 4, 20, 64, 132, 264,
+1024, 2640) and K of `--horizon` (default 41), CUDA events over 20 launches,
+the kernels in the order k1, k2, ..., k2, k1 at each B; and, unless
+`--no-bench`, its time at the bench shape (8192, 41, 36) in the same turns.
+The small kernel sits out the shapes whose factors its shared memory cannot
+hold; then the card's name, power limit and
 clock.  It needs a card and exits non-zero without one, or when a build or a
 launch fails.
 """
@@ -48,17 +53,19 @@ DEFAULT_BATCHES = (1, 2, 4, 20, 64, 132, 264, 1024, 2640)
 # Shapes of the bit-for-bit and plain comparisons: odd widths, one row per
 # lane and two, K = 1 and 2, and the path's widths.
 CHECK_SHAPES = [(9, 3, 36), (4, 3, 33), (2, 4, 64), (3, 1, 7), (2, 2, 5), (1, 41, 36), (4, 41, 36),
-                (20, 25, 36), (300, 3, 36)]
-ENTRIES = {"warp": "btd_solve_f32", "small": "btd_small_solve_f32"}
+                (20, 25, 36), (300, 3, 36), (1, 154, 36)]
+ENTRIES = {"warp": "btd_solve_f32", "small": "btd_small_solve_f32", "reduce": "btd_reduce_solve_f32"}
 
 
 def main(argv: list[str]) -> None:
     if not torch.cuda.is_available():
         sys.exit("compare_btd: needs a CUDA card")
-    batches, bench, damped, specs = DEFAULT_BATCHES, True, False, []
+    batches, horizon, bench, damped, specs = DEFAULT_BATCHES, 41, True, False, []
     for arg in argv:
         if arg.startswith("--batches="):
             batches = tuple(int(b) for b in arg.split("=", 1)[1].split(","))
+        elif arg.startswith("--horizon="):
+            horizon = int(arg.split("=", 1)[1])
         elif arg == "--no-bench":
             bench = False
         elif arg == "--damped":
@@ -80,17 +87,26 @@ def main(argv: list[str]) -> None:
                 kernels[f"{name}:{kind}"] = (lib, getattr(lib, entry), False)
                 if damped:
                     kernels[f"{name}:{kind}+lm"] = (lib, getattr(lib, entry), True)
-        _compare(kernels, batches, bench)
+        _compare(kernels, batches, horizon, bench)
 
 
-def _compare(kernels: dict, batches, bench: bool) -> None:
+def _compare(kernels: dict, batches, horizon: int, bench: bool) -> None:
     dev = torch.device("cuda")
+
+    def runs(name, K, n):
+        """Whether the kernel `name` takes K knots at width n: the small
+        kernel only where its shared memory holds their factors."""
+        lib = kernels[name][0]
+        return not name.split("+")[0].endswith(":small") or lib.btd_pick_small(1, K, n) == 1
 
     def solve(name, D, L, b):
         lib, fn, damped = kernels[name]
         B, K, n, _ = D.shape
         x = torch.empty_like(b)
-        C = torch.empty((B, K, lib.btd_packed_floats(n)), device=dev)
+        if name.split("+")[0].endswith(":reduce"):
+            C = torch.empty((lib.btd_reduce_scratch_floats(B, K, n),), device=dev)
+        else:
+            C = torch.empty((B, K, lib.btd_packed_floats(n)), device=dev)
         lm = damping(B) if damped else None
         err = fn(D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(), C.data_ptr(), B, K, n,
                  torch.cuda.current_stream().cuda_stream, None if lm is None else lm.data_ptr())
@@ -125,23 +141,25 @@ def _compare(kernels: dict, batches, bench: bool) -> None:
         Dd = D + torch.diag_embed(lm[:, None, None] * torch.diagonal(D, dim1=-2, dim2=-1) + 1e-8)
         xp = {False: block_tridiag_solve(D, L, b), True: block_tridiag_solve(Dd, L, b)}
         ref = {False: solve(first, D, L, b), True: solve(first, Dd, L, b)}
-        xs = {name: solve(name, D, L, b) for name in kernels}
+        xs = {name: solve(name, D, L, b) for name in kernels if runs(name, K, n)}
         torch.cuda.synchronize()
         damped = {name: kernels[name][2] for name in kernels}
         print(f"max |x - plain| at ({B}, {K}, {n}) (+lm: of the damped copy):",
               {name: float((x - xp[damped[name]]).abs().max()) for name, x in xs.items()},
               f"x equal to {first}'s (+lm: on the damped copy) bit for bit:",
               {name: bool(torch.equal(x, ref[damped[name]])) for name, x in xs.items() if name != first}, flush=True)
-    order = list(kernels) + list(kernels)[::-1]
+    timed = [name for name in kernels if runs(name, horizon, 36)]
+    order = timed + timed[::-1]
     for B in batches:
-        D, L, b = system(B, 41, 36, 2)
-        times = {name: [] for name in kernels}
+        D, L, b = system(B, horizon, 36, 2)
+        times = {name: [] for name in timed}
         for name in order:
             times[name].append(ms(name, D, L, b))
-        print(f"ms at ({B}, 41, 36), in turns:", times, flush=True)
+        print(f"ms at ({B}, {horizon}, 36), in turns:", times, flush=True)
         del D, L, b
     if bench:
         D, L, b = system(8192, 41, 36, 2)
+        order = list(kernels) + list(kernels)[::-1]
         times = {name: [] for name in kernels}
         for name in order:
             times[name].append(ms(name, D, L, b, 10))

@@ -25,7 +25,15 @@ the block's threads at once and one at a time in either order
 and copy waits must fail.  The rule that picks between the two kernels is
 checked at the edge of the shared memory the small kernel's factors need.
 
-Both kernels take the LM damping `lm` (B,) and add it to each diagonal block
+The long-horizon kernel of the same source (block cyclic reduction, one
+cooperative launch whose blocks all run at once in the stand-in, with a grid
+barrier between its phases) is held to the plain version at small K, with
+the grid's threads at once and one at a time in either order, damped and
+undamped; a copy without each of its barriers and copy waits must fail, and
+the rule that sends a solve to it is checked at the edges of the small
+kernel's shared memory and of its crossover batch.
+
+The kernels take the LM damping `lm` (B,) and add it to each diagonal block
 as it lands in shared memory.  At every shape above, each damped kernel is
 held to the plain solve of the damped copy `D + diag_embed(lm * diag(D) +
 1e-8)` within ATOL and, bit for bit, to its own undamped launch on that copy
@@ -66,6 +74,8 @@ lib_path, d, mode, *entries = sys.argv[1:]
 lib = ctypes.CDLL(lib_path)
 vp, ci = ctypes.c_void_p, ctypes.c_int
 lib.btd_packed_floats.argtypes = [ci]
+lib.btd_reduce_scratch_floats.argtypes = [ci, ci, ci]
+lib.btd_reduce_scratch_floats.restype = ctypes.c_size_t
 D, L, b = (np.load(f"{d}/{k}.npy") for k in "DLb")
 lm = np.load(f"{d}/lm.npy") if os.path.exists(f"{d}/lm.npy") else None
 B, K, n = b.shape
@@ -79,13 +89,16 @@ for entry in entries or ["btd_solve_f32"]:
     fn.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, vp, vp]
     x = np.full_like(b, np.nan)
     C = np.full((B, max(K - 1, 1), lib.btd_packed_floats(n)), np.nan, np.float32)
+    if entry == "btd_reduce_solve_f32":  # its own scratch, 16-byte aligned
+        buf = np.full(lib.btd_reduce_scratch_floats(B, K, n) + 4, np.nan, np.float32)
+        C = buf[(-buf.ctypes.data % 16) // 4:]
     err = fn(D.ctypes.data, L.ctypes.data, b.ctypes.data, x.ctypes.data, C.ctypes.data, B, K, n, None,
              None if lm is None else lm.ctypes.data)
     assert err == 0, (entry, err)
     np.save(f"{d}/x_{entry}.npy", x)
 """
 
-WARP, SMALL = "btd_solve_f32", "btd_small_solve_f32"
+WARP, SMALL, REDUCE = "btd_solve_f32", "btd_small_solve_f32", "btd_reduce_solve_f32"
 
 KERNEL_SRC = os.path.join(os.path.dirname(EMU_DIR), "btd.cu")
 with open(KERNEL_SRC) as _f:
@@ -100,6 +113,21 @@ _SYNC = r"__syncthreads\(\);|__pipeline_wait_prior\(0\);|\bcp_wait\(\);|\bbar_(s
 SMALL_SYNCS = [i for i in range(_SMALL_BODY, next(i for i in range(_SMALL_BODY, len(KERNEL_LINES))
                                                   if KERNEL_LINES[i].startswith("}")))
                if re.search(_SYNC, KERNEL_LINES[i])]
+# Indices of the lines of the long-horizon kernel's functions that hold a
+# barrier (the grid's, a block's, a warp's) or wait for copies.
+_REDUCE_START = next(i for i, line in enumerate(KERNEL_LINES) if "---- the long-horizon kernel" in line)
+_REDUCE_END = next(i for i in range(_REDUCE_START, len(KERNEL_LINES)) if KERNEL_LINES[i].startswith("}  // namespace reduce"))
+_REDUCE_SYNC = (r"\bgrid_sync\(\);|__syncthreads\(\);|__syncwarp\(\);|__pipeline_wait_prior\(0\);|\bcp_wait\(\);"
+                r"|\bbar_(sync|arrive)\([^;]*\);")
+# Left out, each where the line before it says so: what the stand-in cannot
+# show.  The back pass's last __syncwarp orders a write after a read
+# (another lane's load still in flight on the card; the stand-in completes
+# every load at once), and the __syncwarp before a row warp's named barrier
+# makes the warp reach that .aligned barrier together (the stand-in's named
+# barriers count threads).
+REDUCE_SYNCS = [i for i in range(_REDUCE_START, _REDUCE_END) if re.search(_REDUCE_SYNC, KERNEL_LINES[i])
+                and not KERNEL_LINES[i].lstrip().startswith("//") and "cannot show" not in KERNEL_LINES[i - 1]]
+REDUCE_MAX_BATCH = int(re.search(r"constexpr int kMaxBatch = (\d+);", "".join(KERNEL_LINES)).group(1))
 # Scenarios per SM up to which the small kernel runs, as the source fixes it.
 SMALL_PER_SM = int(re.search(r"constexpr int kSmallPerSm = (\d+);", "".join(KERNEL_LINES)).group(1))
 EMU_SMS, EMU_SMEM = 2, 232448  # the stand-in's card (emu/cuda_runtime.h)
@@ -427,3 +455,141 @@ def test_small_kernel_needs_each_barrier_and_wait(drop_lib, tmp_path, line):
         if not _small_agrees(drop_lib, tmp_path, line + 1, order):
             return
     pytest.fail(f"the small kernel without btd.cu:{line + 1} ({KERNEL_LINES[line].strip()}) still agrees")
+
+
+# ---- the long-horizon kernel --------------------------------------------------
+
+
+_BOTH = (False, True)
+
+
+@pytest.mark.parametrize(
+    "B,K,n,mode,order,damped",
+    [pytest.param(*case, d, id=f"{'damped' if d else 'undamped'}-{case[0]}-{case[1]}-{case[2]}-{case[3]}-{case[4]}")
+     for *case, ds in [
+         (1, 2, 36, "aligned", "", _BOTH),        # one level: knot 1 eliminated, then knot 0
+         (1, 3, 36, "aligned", "", _BOTH),        # knot 1 with both neighbours, then a kept knot 0
+         (1, 13, 36, "aligned", "", _BOTH),       # 4 levels; 6 items a phase on the stand-in's 2 blocks
+         (2, 9, 36, "aligned", "", _BOTH),        # two scenarios, the last level's knot 8 alone on its right
+         (1, 1, 7, "aligned", "", _BOTH),         # K = 1: the last level at once
+         (2, 5, 33, "misaligned", "", (False,)),  # 4-byte copies of D; rows on a second lane
+         (1, 6, 64, "aligned", "", (False,)),     # the widest block
+         (3, 7, 12, "aligned", "1", _BOTH),       # the grid's threads one at a time, ascending
+         (1, 5, 5, "aligned", "-1", _BOTH),       # and descending
+         (2, 3, 12, "aligned", "-1", (False,)),
+     ] for d in ds],
+)
+def test_reduce_kernel_matches_plain(emu_lib, tmp_path, B, K, n, mode, order, damped):
+    """The long-horizon kernel solves H x = b within ATOL of the plain
+    version; damped by lm, within ATOL of the plain solve of the damped copy
+    and bit for bit its own undamped launch on that copy."""
+    D, L, xt = _system(B, K, n, 3000 + B * 100 + K * 10 + n)
+    Dt, Lt = torch.from_numpy(D), torch.from_numpy(L)
+    b = block_tridiag_matvec(Dt, Lt, torch.from_numpy(xt)).contiguous()
+    env = dict(os.environ, QTOS_EMU_THREAD_ORDER=order)
+    if not damped:
+        x = _emu_solve(emu_lib, tmp_path, D, L, b.numpy(), mode, (REDUCE,), env=env)
+        torch.testing.assert_close(x, block_tridiag_solve(Dt, Lt, b), rtol=0, atol=ATOL)
+        torch.testing.assert_close(x, torch.from_numpy(xt), rtol=0, atol=ATOL)
+        return
+    lm = _damping(B, 4000 + B + K + n)
+    Dd = _damped_copy(D, lm)
+    x = _emu_solve(emu_lib, tmp_path, D, L, b.numpy(), mode, (REDUCE,), env=env, lm=lm)
+    torch.testing.assert_close(x, block_tridiag_solve(torch.from_numpy(Dd), Lt, b), rtol=0, atol=ATOL)
+    copy = _emu_solve(emu_lib, tmp_path, Dd, L, b.numpy(), mode, (REDUCE,), env=env)
+    assert torch.equal(x, copy), f"largest difference {float((x - copy).abs().max())}"
+
+
+def test_reduce_kernel_pivot_clamp(emu_lib, tmp_path):
+    """The pivot-clamp case of test_emulated_kernel_pivot_clamp: row 3 of
+    D_0 decoupled, its pivot below the clamp; x finite and within rtol 1e-4
+    of the plain version's."""
+    D, L, xt = _system(3, 4, 12, 8)
+    D[:, 0, 3, :] = 0
+    D[:, 0, :, 3] = 0
+    D[:, 0, 3, 3] = 1e-13
+    L[:, 0, :, 3] = 0
+    Dt, Lt = torch.from_numpy(D), torch.from_numpy(L)
+    b = block_tridiag_matvec(Dt, Lt, torch.from_numpy(xt)).contiguous()
+    x, xp = _emu_solve(emu_lib, tmp_path, D, L, b.numpy(), entries=(REDUCE,)), block_tridiag_solve(Dt, Lt, b)
+    assert bool(torch.isfinite(x).all())
+    torch.testing.assert_close(x, xp, rtol=1e-4, atol=ATOL)
+
+
+def _reduce_library(path):
+    lib = _emu_library(path)
+    for fn in (lib.btd_pick_reduce, lib.btd_reduce_grid):
+        fn.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+def test_pick_reduce_past_the_small_kernel_up_to_the_crossover(emu_lib):
+    """The long-horizon kernel takes a batch of up to kMaxBatch scenarios
+    whose K knots' factors do not fit the small kernel's shared memory (K >=
+    74 at n = 36), btd_kernel a larger one; a shape the kernels do not take
+    is an error."""
+    lib = _reduce_library(emu_lib)
+    assert [lib.btd_pick_reduce(1, K, 36) for K in (41, 73, 74, 154)] == [0, 0, 1, 1]
+    assert [lib.btd_pick_reduce(B, 154, 36) for B in (REDUCE_MAX_BATCH, REDUCE_MAX_BATCH + 1)] == [1, 0]
+    assert lib.btd_pick_reduce(0, 154, 36) < 0 and lib.btd_pick_reduce(1, 154, 65) < 0
+
+
+def test_reduce_grid_is_what_the_card_holds(emu_lib):
+    """One block per item of the busiest phase (ceil(K / 2) a scenario), at
+    most the blocks the card holds at once (the stand-in's 2)."""
+    lib = _reduce_library(emu_lib)
+    assert [lib.btd_reduce_grid(1, K, 36) for K in (1, 2, 3, 154)] == [1, 1, 2, 2]
+    assert lib.btd_reduce_grid(1, 1, 65) < 0
+
+
+@pytest.fixture(scope="module")
+def reduce_drop_lib(tmp_path_factory):
+    """btd.cu with each barrier and copy wait of the long-horizon kernel left
+    out when the environment's QTOS_DROP_LINE names its line (1-based)."""
+    d = tmp_path_factory.mktemp("btd_reduce_drop")
+    lines = list(KERNEL_LINES)
+    for i in REDUCE_SYNCS:
+        lines[i] = re.sub(_REDUCE_SYNC, lambda m, i=i: f"if (emu_keep({i + 1})) {{ {m.group(0)} }}", lines[i])
+    head = ('#include <cstdlib>\n'
+            'static bool emu_keep(int line) {\n'
+            '  static const int drop = std::atoi(std::getenv("QTOS_DROP_LINE") ? std::getenv("QTOS_DROP_LINE") : "0");\n'
+            '  return line != drop;\n'
+            '}\n')
+    (d / "emu").mkdir()
+    (d / "btd.cu").write_text(head + "".join(lines))
+    shutil.copy(os.path.join(EMU_DIR, "btd_emu.cpp"), d / "emu" / "btd_emu.cpp")
+    return emu.build(btd.KERNEL, d / "emu" / "btd_emu.cpp", d / "libbtd_reduce_drop.so")
+
+
+def _reduce_agrees(lib, tmp_path, drop, order):
+    D, L, xt = _system(1, 7, 12, 19)
+    Dt, Lt = torch.from_numpy(D), torch.from_numpy(L)
+    b = block_tridiag_matvec(Dt, Lt, torch.from_numpy(xt)).contiguous()
+    proc, xs = _emu_run(lib, tmp_path, D, L, b.numpy(), entries=(REDUCE,), lm=_damping(1, 19),
+                        env=dict(os.environ, QTOS_DROP_LINE=str(drop), QTOS_EMU_THREAD_ORDER=order))
+    if proc.returncode != 0:
+        return False
+    xp = block_tridiag_solve(torch.from_numpy(_damped_copy(D, _damping(1, 19))), Lt, b)
+    return bool(torch.allclose(xs[REDUCE], xp, rtol=0, atol=ATOL))
+
+
+def test_reduce_kernel_source_has_its_barriers():
+    held = "".join(KERNEL_LINES[i] for i in REDUCE_SYNCS)
+    assert held.count("grid_sync") == 2 and held.count("__syncthreads") >= 4, \
+        "the phases end at the grid's barrier, an item's stages at the block's"
+
+
+@pytest.mark.parametrize("order", ["", "1", "-1"], ids=["parallel", "ascending", "descending"])
+def test_reduce_kernel_drop_harness_passes_the_source(reduce_drop_lib, tmp_path, order):
+    assert _reduce_agrees(reduce_drop_lib, tmp_path, 0, order)
+
+
+@pytest.mark.parametrize("line", [pytest.param(i, id=f"btd.cu:{i + 1}") for i in REDUCE_SYNCS])
+def test_reduce_kernel_needs_each_barrier_and_wait(reduce_drop_lib, tmp_path, line):
+    """Without the barrier or copy wait on `line` the long-horizon kernel
+    aborts or parts from the plain version, with the grid's threads at once
+    or one at a time in one of the two orders."""
+    for order in ("1", "-1", ""):
+        if not _reduce_agrees(reduce_drop_lib, tmp_path, line + 1, order):
+            return
+    pytest.fail(f"the long-horizon kernel without btd.cu:{line + 1} ({KERNEL_LINES[line].strip()}) still agrees")

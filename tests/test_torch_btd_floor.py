@@ -1,6 +1,7 @@
 """The small BTD kernel's design floor (`qtos_torch/tools/btd_floor.py`): its
 counts of the chain's operations are held to `qtos_torch/csrc/btd.cu`, and
-the floor is their sum over the knots at the probed latencies.
+the floor is their sum over the knots at the probed latencies.  The
+long-horizon kernel's floor is its stages' chains summed over its levels.
 
 The latencies are measured on the card only (`chip_smoke.py` phase 3).
 """
@@ -57,3 +58,28 @@ def test_function_body_reads_one_function(source):
     assert "rsqrtf" not in btd_floor.function_body(source, "forward_row_block")
     with pytest.raises(KeyError):
         btd_floor.function_body(source, "no_such_function")
+
+
+def test_reduce_chain_at_the_path_width():
+    """At n = 36: the Cholesky and the row solves' last block behind it are
+    the small kernel's, a back level's triangular solve is 36 shuffles,
+    products and FMAs."""
+    ops = btd_floor.reduce_stage_ops(36)
+    assert ops["cholesky"] == btd_floor.stage_ops(36)["cholesky"]
+    assert ops["row solves"] == dict(fma=35, simple=4, lds=1, bar=2)
+    assert ops["C^T solve"] == dict(fma=36, simple=36, shfl=36)
+    assert ops["updates"]["fma"] == 72
+
+
+@pytest.mark.parametrize("K,levels", [(1, 0), (2, 1), (3, 2), (13, 4), (129, 8), (154, 8), (256, 8), (257, 9)])
+def test_reduce_floor_is_its_stages_over_the_levels(K, levels):
+    """ceil(log2 K) levels: every phase factors and solves its rows, the
+    phases past the first update, and each back level and the last phase
+    solve C^T u = r; at one cycle per operation the floor is that count."""
+    assert btd_floor.levels(K) == levels
+    ms, cycles, stages = btd_floor.reduce_floor(UNIT, K, 36, 1000.0)
+    per = {stage: sum(ops.values()) for stage, ops in btd_floor.reduce_stage_ops(36).items()}
+    assert stages == {"updates": levels * per["updates"], "cholesky": (levels + 1) * per["cholesky"],
+                      "row solves": (levels + 1) * per["row solves"], "W x + V x": levels * per["W x + V x"],
+                      "C^T solve": (levels + 1) * per["C^T solve"]}
+    assert cycles == sum(stages.values()) and ms == pytest.approx(cycles / 1e6)

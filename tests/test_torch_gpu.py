@@ -20,7 +20,12 @@ scenarios per SM (kSmallPerSm in btd.cu), and where its factors fit in
 shared memory, `btd_solve`
 launches the small-batch kernel of the same source (one scenario per
 block) instead: it is held to btd_kernel bit for bit at the paths' small
-shapes and on both sides of the rule.
+shapes and on both sides of the rule.  Where the small kernel's factors do
+not fit (K >= 74 at n = 36) and B is at most the long-horizon kernel's
+crossover (kMaxBatch in btd.cu), `btd_solve` launches that kernel (block
+cyclic reduction, one cooperative launch): it is held to the plain version
+at ATOL at the one-shot plan's horizons, damped and undamped, on both sides
+of its rule, under a profiler and in a CUDA graph.
 """
 
 import dataclasses
@@ -37,7 +42,9 @@ from qtos_torch.ops.tridiag import block_tridiag_matvec, block_tridiag_solve
 
 ATOL = 5e-4
 with open(btd.SOURCE) as _f:
-    SMALL_PER_SM = int(re.search(r"constexpr int kSmallPerSm = (\d+);", _f.read()).group(1))
+    _SRC = _f.read()
+SMALL_PER_SM = int(re.search(r"constexpr int kSmallPerSm = (\d+);", _SRC).group(1))
+REDUCE_MAX_BATCH = int(re.search(r"constexpr int kMaxBatch = (\d+);", _SRC).group(1))
 pytestmark = pytest.mark.gpu
 
 
@@ -105,12 +112,15 @@ def test_kernel_pivot_clamp(cuda):
 
 def _launch(entry, D, L, b, lm=None):
     """x from one launch of a kernel of btd.cu (`btd_solve_f32`: btd_kernel;
-    `btd_small_solve_f32`: the small-batch kernel), past the wrapper, damped
-    by `lm` if given."""
+    `btd_small_solve_f32`: the small-batch kernel; `btd_reduce_solve_f32`:
+    the long-horizon kernel), past the wrapper, damped by `lm` if given."""
     lib = btd.KERNEL.load()
     B, K, n = b.shape
     x = torch.empty_like(b)
-    C = torch.empty((B, K - 1, lib.btd_packed_floats(n)), device=b.device)
+    if entry == "btd_reduce_solve_f32":
+        C = btd.reduce_scratch(B, K, n, b.device)
+    else:
+        C = torch.empty((B, K - 1, lib.btd_packed_floats(n)), device=b.device)
     err = getattr(lib, entry)(D.data_ptr(), L.data_ptr(), b.data_ptr(), x.data_ptr(), C.data_ptr(), B, K, n,
                               torch.cuda.current_stream().cuda_stream, None if lm is None else lm.data_ptr())
     assert err == 0, f"{entry} at ({B}, {K}, {n}): CUDA error {err}"
@@ -163,29 +173,139 @@ def test_dispatch_where_the_factors_do_not_fit(cuda):
     torch.testing.assert_close(x, block_tridiag_solve(D, L, b), rtol=0, atol=ATOL)
 
 
+def _btd_counts() -> tuple:
+    return (btd_solve.launches, btd_solve.small_launches, btd_solve.long_launches, btd_solve.reduce_launches)
+
+
 @pytest.mark.parametrize("damped", [False, True], ids=["undamped", "damped"])
-def test_long_horizon_at_batch_one_goes_to_btd_kernel(cuda, damped):
+def test_long_horizon_at_batch_one_goes_to_the_reduction_kernel(cuda, damped):
     """The one-shot plan's solve, (1, 154, 36): the batch is the small
-    kernel's but its factors are not, so btd_solve launches btd_kernel and
-    counts the launch in `long_launches`; x within ATOL of the plain solve
-    (of the damped copy when damped).  At the sweep's (8192, 41, 36) and the
-    replan's (4, 41, 36) nothing is counted there."""
+    kernel's but its factors are not, so btd_solve launches the long-horizon
+    kernel and counts the launch in `long_launches` and `reduce_launches`;
+    x within ATOL of the plain solve (of the damped copy when damped).  At
+    the sweep's (8192, 41, 36) and the replan's (4, 41, 36) nothing is
+    counted in either."""
     D, L, b, _ = _system(1, 154, 36, 14, cuda)
     lm = torch.full((1,), 0.3, device=cuda) if damped else None
-    assert not picks_small(1, 154, 36)
-    counts = (btd_solve.launches, btd_solve.small_launches, btd_solve.long_launches)
+    assert not picks_small(1, 154, 36) and btd.picks_reduce(1, 154, 36)
+    counts = _btd_counts()
     x = btd_solve(D, L, b, lm=lm)
     torch.cuda.synchronize()
-    assert (btd_solve.launches, btd_solve.small_launches, btd_solve.long_launches) == (
-        counts[0] + 1, counts[1], counts[2] + 1)
+    assert _btd_counts() == (counts[0] + 1, counts[1], counts[2] + 1, counts[3] + 1)
     plain = block_tridiag_solve(_damped_copy(D, lm) if damped else D, L, b)
     torch.testing.assert_close(x, plain, rtol=0, atol=ATOL)
     past = SMALL_PER_SM * torch.cuda.get_device_properties(cuda).multi_processor_count + 1
-    for B in (past, 4):
+    for B in (past, 4, 8192):
         D, L, b, _ = _system(B, 41, 36, 15, cuda)
-        long = btd_solve.long_launches
+        counts = _btd_counts()
         btd_solve(D, L, b)
-        assert btd_solve.long_launches == long
+        assert _btd_counts()[2:] == counts[2:], B
+
+
+@pytest.mark.parametrize("B,K", [(1, 154), (1, 129), (1, 74), (2, 154), (REDUCE_MAX_BATCH, 154)])
+@pytest.mark.parametrize("damped", [False, True], ids=["undamped", "damped"])
+def test_reduce_kernel_matches_plain(cuda, B, K, damped):
+    """The long-horizon kernel at the one-shot plan's horizon (154), the
+    reference's 8 s tile (129), the first horizon past the small kernel's
+    shared memory (74), and at batches up to its crossover: within ATOL of
+    the plain solve (of the damped copy when damped), and damped, bit for
+    bit its own undamped launch on the damped copy; D left as it was."""
+    D, L, b, xt = _system(B, K, 36, 16 + K, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(K)
+    lm = 10.0 ** (torch.rand((B,), generator=gen, device=cuda) * 4.3 - 4.0) if damped else None
+    D0 = D.clone()
+    x = _launch("btd_reduce_solve_f32", D, L, b, lm)
+    if damped:
+        Dd = _damped_copy(D, lm)
+        copy = _launch("btd_reduce_solve_f32", Dd, L, b)
+        torch.cuda.synchronize()
+        assert torch.equal(x, copy), float((x - copy).abs().max())
+        assert torch.equal(D, D0)
+        torch.testing.assert_close(x, block_tridiag_solve(Dd, L, b), rtol=0, atol=ATOL)
+    else:
+        torch.cuda.synchronize()
+        torch.testing.assert_close(x, block_tridiag_solve(D, L, b), rtol=0, atol=ATOL)
+        torch.testing.assert_close(x, xt, rtol=0, atol=ATOL)
+
+
+def test_reduce_kernel_pivot_clamp(cuda):
+    """test_kernel_pivot_clamp's system, row 3 of D_0 decoupled with its
+    pivot below the clamp, at K = 154 through the long-horizon kernel."""
+    D, L, _, xt = _system(1, 154, 12, 8, cuda)
+    D[:, 0, 3, :] = 0
+    D[:, 0, :, 3] = 0
+    D[:, 0, 3, 3] = 1e-13
+    L[:, 0, :, 3] = 0
+    b = block_tridiag_matvec(D, L, xt).contiguous()
+    x = _launch("btd_reduce_solve_f32", D, L, b)
+    xp = block_tridiag_solve(D, L, b)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(x).all()) and bool(torch.isfinite(xp).all())
+    torch.testing.assert_close(x, xp, rtol=1e-4, atol=ATOL)
+
+
+@pytest.mark.parametrize("side", ["at", "past"])
+def test_reduce_dispatch_on_each_side_of_its_crossover(cuda, side):
+    """At K = 154 btd_solve launches the long-horizon kernel up to
+    REDUCE_MAX_BATCH scenarios and btd_kernel past it, each call counted
+    long and, on the long-horizon kernel, in reduce_launches; either way x
+    within ATOL of the plain solve."""
+    B = REDUCE_MAX_BATCH + (side == "past")
+    reduce = side == "at"
+    assert btd.picks_reduce(B, 154, 36) == reduce
+    D, L, b, _ = _system(B, 154, 36, 17, cuda)
+    counts = _btd_counts()
+    x = btd_solve(D, L, b)
+    torch.cuda.synchronize()
+    assert _btd_counts() == (counts[0] + 1, counts[1], counts[2] + 1, counts[3] + reduce)
+    torch.testing.assert_close(x, block_tridiag_solve(D, L, b), rtol=0, atol=ATOL)
+
+
+def test_reduce_kernel_is_one_launch_in_the_trace(cuda):
+    """A profiler's trace of one solve at (1, 154, 36), read as the
+    benchmark reads the BTD solve (`benchmark.trace.kernel_time` by the word
+    btd_kernel): one launch, and none of the small kernel."""
+    from benchmark import trace
+
+    D, L, b, _ = _system(1, 154, 36, 18, cuda)
+    btd_solve(D, L, b)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function(trace.SPAN_PREFIX + "window"):
+            btd_solve(D, L, b)
+            torch.cuda.synchronize()
+    summary = trace.summarize(prof, trace.SPAN_PREFIX + "window")
+    launches, seconds = trace.kernel_time(summary, "btd_kernel")
+    assert launches == 1 and seconds > 0, summary["kernels"]
+    assert trace.kernel_time(summary, "btd_small_kernel")[0] == 0
+    assert any("reduce::btd_kernel" in name for name in summary["kernels"]), summary["kernels"]
+
+
+def test_reduce_kernel_in_a_cuda_graph(cuda):
+    """Captured under torch.cuda.graph at (1, 154, 36), damped, the solve
+    replays to the eager x bit for bit, and again on new inputs copied into
+    the captured ones."""
+    D, L, b, _ = _system(1, 154, 36, 19, cuda)
+    lm = torch.full((1,), 0.3, device=cuda)
+    eager = btd_solve(D, L, b, lm=lm)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        btd_solve(D, L, b, lm=lm)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = btd_solve(D, L, b, lm=lm)
+    out.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager)
+    D2, L2, b2, _ = _system(1, 154, 36, 20, cuda)
+    D.copy_(D2), L.copy_(L2), b.copy_(b2)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, btd_solve(D2, L2, b2, lm=lm))
 
 
 def test_small_kernel_launch_error_raises(cuda, monkeypatch):
@@ -990,10 +1110,10 @@ def test_replayed_replan_launches_what_its_counters_count(cuda, monkeypatch):
 def test_oneshot_plan_on_card(cuda):
     """The benchmark's `oneshot.exp1` plan, exp_1's whole path as the port's
     one-shot mode sizes it (K=154, B=1, 80 LM iterations, goal 2.1 m):
-    converged, with 80 launches of btd_kernel (never the small kernel), of
-    the chunked assembly and of the restore, each counted in
-    `long_launches` and `chunked_launches`; a sweep's solve_batch at
-    (8192, 41) counts in neither."""
+    converged, with 80 launches of the long-horizon BTD kernel (never the
+    small kernel), of the chunked assembly and of the restore, each counted
+    in `long_launches`, `reduce_launches` and `chunked_launches`; a sweep's
+    solve_batch at (8192, 41) counts in none of them."""
     from benchmark import harness, program
 
     from qtos_torch.ops.assemble import assemble_kernel
@@ -1007,7 +1127,8 @@ def test_oneshot_plan_on_card(cuda):
                          K=cfg["K"], device=cuda)
     counters = {c: (w, c.split(".")[1]) for w, c in (
         (btd_solve, "btd_solve.launches"), (btd_solve, "btd_solve.small_launches"),
-        (btd_solve, "btd_solve.long_launches"), (assemble_kernel, "assemble_kernel.launches"),
+        (btd_solve, "btd_solve.long_launches"), (btd_solve, "btd_solve.reduce_launches"),
+        (assemble_kernel, "assemble_kernel.launches"),
         (assemble_kernel, "assemble_kernel.chunked_launches"), (restore_rejected, "restore_rejected.launches"))}
 
     def counted(call):
@@ -1020,10 +1141,11 @@ def test_oneshot_plan_on_card(cuda):
     iters = scfg.max_iters
     assert iters == 80 and int(res.status[0]) == 0, float(res.max_violation[0])
     assert n == {"btd_solve.launches": iters, "btd_solve.small_launches": 0, "btd_solve.long_launches": iters,
-                 "assemble_kernel.launches": iters, "assemble_kernel.chunked_launches": iters,
-                 "restore_rejected.launches": iters}, n
+                 "btd_solve.reduce_launches": iters, "assemble_kernel.launches": iters,
+                 "assemble_kernel.chunked_launches": iters, "restore_rejected.launches": iters}, n
     terrain, specs, cfg3 = _bench_specs(cuda, 8192)
     _, n = counted(lambda: solve_batch(specs, terrain, cfg3.replace(rescue_iters=0)))
     assert n["btd_solve.launches"] == cfg3.max_iters and n["btd_solve.long_launches"] == 0
+    assert n["btd_solve.reduce_launches"] == 0
     assert n["assemble_kernel.chunked_launches"] == 0
 
