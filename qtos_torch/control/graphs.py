@@ -11,6 +11,10 @@ recently used dropped first.  A key met once never pays for a capture.
 `Graph` captures `fn(*inputs)` on static copies of the inputs.  A replay
 copies the call's inputs into them, replays, and returns a fresh copy of
 every output, so a caller may hold the outputs of one call across the next.
+Whatever the captured work reads besides its constants has to be among the
+inputs (the replan passes its height grid as one): a graph holds nothing of
+its caller's, and knows the tensors it last copied only by weak reference
+(`new_inputs`).
 The hand kernels' wrappers count launches when Python calls them: a capture
 launches nothing, so every registered counter (`ops.cuda_lib.LAUNCH_COUNTERS`)
 goes back to where it was, and each replay adds what the capture counted.
@@ -19,6 +23,7 @@ goes back to where it was, and each replay adds what the capture counted.
 from __future__ import annotations
 
 import collections
+import weakref
 
 import torch
 
@@ -36,19 +41,24 @@ def _clone(out):
 
 class Graph:
     """`fn(*inputs)` captured on the inputs' CUDA device.  `inputs` are
-    tensors or None (left out of the copies); `keep` anything the graph
-    reads by address that must outlive it (a terrain's grid)."""
+    tensors or None (left out of the copies)."""
 
-    def __init__(self, fn, inputs: tuple, keep=None):
+    def __init__(self, fn, inputs: tuple):
         self.device = next(t.device for t in inputs if t is not None)
-        self.counters, self.keep = tuple(cuda_lib.LAUNCH_COUNTERS), keep
+        self.counters = tuple(cuda_lib.LAUNCH_COUNTERS)
         self.static = tuple(None if t is None else t.clone() for t in inputs)
+        self.sources = self._sources(inputs)
+        self.new_inputs = (False,) * len(inputs)
         before = self._counts()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.device(self.device), torch.cuda.graph(self.graph):
             self.out = fn(*self.static)
         self.launches = tuple(a - b for a, b in zip(self._counts(), before))
         self._add(tuple(-n for n in self.launches))
+
+    @staticmethod
+    def _sources(inputs: tuple) -> tuple:
+        return tuple(None if t is None else weakref.ref(t) for t in inputs)
 
     def _counts(self) -> tuple:
         return tuple(getattr(obj, name) for obj, name in self.counters)
@@ -58,7 +68,11 @@ class Graph:
             setattr(obj, name, getattr(obj, name) + n)
 
     def replay(self, inputs: tuple):
-        """The outputs of `fn(*inputs)`, fresh tensors, by one replay."""
+        """The outputs of `fn(*inputs)`, fresh tensors, by one replay.
+        `new_inputs` tells for each input whether it is another tensor than
+        the one copied into its place last (by the capture or a replay)."""
+        self.new_inputs = tuple(r is not None and r() is not t for r, t in zip(self.sources, inputs))
+        self.sources = self._sources(inputs)
         with torch.cuda.device(self.device):
             for dst, src in zip(self.static, inputs):
                 if dst is not None:
@@ -76,13 +90,13 @@ class GraphCache:
         self.size = size
         self.entries = collections.OrderedDict()
 
-    def graph(self, key, fn, inputs: tuple, keep=None):
+    def graph(self, key, fn, inputs: tuple):
         """(graph, captured): None at the key's first call, the graph
         captured now at its second, the cached one after."""
         entry = self.entries.pop(key, _UNSEEN)
         captured = entry is None
         if captured:
-            entry = Graph(fn, inputs, keep)
+            entry = Graph(fn, inputs)
         elif entry is _UNSEEN:
             entry = None
         self.entries[key] = entry

@@ -287,15 +287,24 @@ _GRAPHS = GraphCache(16)
 
 def graph_key(inputs: tuple, terrain: Terrain, scfg: SolverConfig, K: int, duration: float, gait: str) -> tuple:
     """What a replan captured as a CUDA graph depends on besides the contents
-    of its `inputs` (`_plan_batch_core`'s tensors, None where not given): each
-    input's device, dtype and shape (so k, K, NV and whether x0 is given), the
-    solver settings, the window, the gait, and the terrain by its grid's
-    identity, address, shape and geometry (the graph reads the grid at its
-    address)."""
+    of its `inputs` (`_plan_batch_core`'s tensors, None where not given) and
+    of the terrain's grid: each input's device, dtype and shape (so k, K, NV
+    and whether x0 is given), the solver settings, the window, the gait, and
+    the terrain's geometry (its grid's device, dtype and shape, its
+    resolution and origin).  The grid itself is one more input of the graph,
+    copied in at every replay, so every world of one geometry shares a
+    graph."""
     h = terrain.height
-    ground = (id(h), h.data_ptr(), h.device, h.dtype, tuple(h.shape), terrain.resolution, tuple(terrain.origin))
+    ground = (h.device, h.dtype, tuple(h.shape), terrain.resolution, tuple(terrain.origin))
     shapes = tuple(None if t is None else (t.device, t.dtype, tuple(t.shape)) for t in inputs)
     return shapes, scfg, K, duration, gait, ground
+
+
+def _core_on_grid(rows, goals_r, goals_yaw, t0s, x0, drift3, dyaw, grid, *, terrain: Terrain, **settings):
+    """`_plan_batch_core` on `terrain`'s geometry with `grid` as its heights:
+    in a graph, the static copy of the caller's grid."""
+    ground = Terrain(height=grid, resolution=terrain.resolution, origin=terrain.origin)
+    return _plan_batch_core(rows, goals_r, goals_yaw, t0s, x0, drift3, dyaw, ground, **settings)
 
 
 def plan_windows_batch(rows, goals_r, goals_yaw, terrain: Terrain, cfg: RunnerConfig,
@@ -310,10 +319,14 @@ def plan_windows_batch(rows, goals_r, goals_yaw, terrain: Terrain, cfg: RunnerCo
     On a CUDA device the call is one CUDA graph per `graph_key`: the first
     call with a key runs eagerly, the second captures `_plan_batch_core` and
     replays it, every later one replays (`control.graphs`), with the same
-    answers bit for bit.  `plan_windows_batch.captures` and `.replays` count
-    them; a replayed call records one `qtos::replan.replay` span under a
-    profiler and none of the stages', which the host no longer runs.  On the
-    CPU it runs eagerly.
+    answers bit for bit.  The terrain's height grid is one of the graph's
+    inputs, copied in at every replay, so a world that changes between
+    replans (a box dropped into it, a fresh grid tensor of the same
+    geometry) replays the same graph.  `plan_windows_batch.captures` and
+    `.replays` count them, `.new_worlds` the replays whose grid is another
+    tensor than the one the graph last copied; a replayed call records one
+    `qtos::replan.replay` span under a profiler and none of the stages',
+    which the host no longer runs.  On the CPU it runs eagerly.
 
     Args:
       rows: (k, 37) candidate start rows, on the terrain's device.
@@ -337,23 +350,26 @@ def plan_windows_batch(rows, goals_r, goals_yaw, terrain: Terrain, cfg: RunnerCo
         if dyaw is None:
             dyaw = torch.zeros((), **f32)
         inputs = (rows, goals_r, goals_yaw, t0s, x0, drift3, dyaw)
-        core = functools.partial(_plan_batch_core, terrain=terrain, scfg=scfg, K=cfg.K,
+        core = functools.partial(_core_on_grid, terrain=terrain, scfg=scfg, K=cfg.K,
                                  duration=cfg.window_duration, gait=cfg.gait)
         if rows.device.type != "cuda":
-            return core(*inputs)
+            return core(*inputs, terrain.height)
         key = graph_key(inputs, terrain, scfg, cfg.K, cfg.window_duration, cfg.gait)
-        graph, captured = _GRAPHS.graph(key, core, inputs, keep=terrain)
+        inputs = inputs + (terrain.height,)
+        graph, captured = _GRAPHS.graph(key, core, inputs)
         if graph is None:
             return core(*inputs)
         plan_windows_batch.captures += captured
         with annotate("qtos::replan.replay", k):
             out = graph.replay(inputs)
         plan_windows_batch.replays += 1
+        plan_windows_batch.new_worlds += graph.new_inputs[-1]          # the grid
         return out
 
 
 plan_windows_batch.captures = 0
 plan_windows_batch.replays = 0
+plan_windows_batch.new_worlds = 0
 
 
 def stance_table(row, n_rows: int, t0: float):

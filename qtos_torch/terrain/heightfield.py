@@ -15,6 +15,7 @@ import torch
 
 from qtos_torch.device import resolve_device
 from qtos_torch.terrain import tiles as tiles_lib
+from qtos_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,7 +147,9 @@ def add_box_obstacle(terrain: Terrain, x: float, y: float, half: float = 0.1,
                      height: float = 0.34) -> Terrain:
     """Raise a box-shaped obstacle into the heightfield at world (x, y): the
     dynamic-terrain event of a box of half-extent `half` spawned mid-run with
-    its top face at `height`.  Shape and dtype are preserved."""
+    its top face at `height`.  Shape and dtype are preserved; the grid is a
+    fresh tensor.  Under a profiler it records the span `qtos::terrain.box`
+    (n = the cells raised to at least `height`)."""
     H, W = terrain.height.shape
     x0, y0 = terrain.origin
     res = terrain.resolution
@@ -154,8 +157,9 @@ def add_box_obstacle(terrain: Terrain, x: float, y: float, half: float = 0.1,
     c1 = int(np.clip(np.ceil((x + half - x0) / res), 1, W))
     r0 = int(np.clip(np.floor((y - half - y0) / res), 0, H - 1))
     r1 = int(np.clip(np.ceil((y + half - y0) / res), 1, H))
-    h = terrain.height.clone()
-    h[r0:r1, c0:c1] = torch.clamp(h[r0:r1, c0:c1], min=height)
+    with annotate("qtos::terrain.box", max(r1 - r0, 0) * max(c1 - c0, 0)):
+        h = terrain.height.clone()
+        h[r0:r1, c0:c1] = torch.clamp(h[r0:r1, c0:c1], min=height)
     return dataclasses.replace(terrain, height=h)
 
 

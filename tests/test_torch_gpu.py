@@ -1107,6 +1107,98 @@ def test_replayed_replan_launches_what_its_counters_count(cuda, monkeypatch):
                                                       traced["lm_restore_kernel"])
 
 
+def _exp8_world(dev, worlds):
+    """The program's terrain of `replan.exp8`'s configuration on `dev`, the
+    cell's settings, replans of `worlds` worlds from its traffic, and the
+    program's world of each (`add_box_obstacle` on the terrain)."""
+    from benchmark import harness, program, traffic
+
+    from qtos_torch.terrain.heightfield import add_box_obstacle
+
+    cell = harness.load_cell("replan.exp8")
+    cfg = cell["cfg"]
+    i = traffic.make(dict(cell["mix"], worlds=worlds), cfg, 2**31 + 26_026, dev)
+    ground = program.terrain(harness.terrain_grid(cfg, dev), cfg)
+    box = cfg["box"]
+    made = [add_box_obstacle(ground, x, i["box_y"], half=box["half"], height=box["top"]) for x in i["box_x"].tolist()]
+    return ground, program.runner_config(cfg), i, made
+
+
+def test_replan_graph_takes_the_world_as_data(cuda, monkeypatch):
+    """Captured on world A, the replan's graph replays on world B (A with a
+    second box on the first candidate's path, a fresh grid of the same
+    geometry) and on A again: every output bit for bit the eager path's on
+    that world, B's answer not A's, two new worlds counted, one capture."""
+    from qtos_torch.control import replan
+    from qtos_torch.terrain.heightfield import add_box_obstacle
+
+    _, rcfg, i, (world_a,) = _exp8_world(cuda, worlds=1)
+    com = i["rows"][0, 0, 1:3].tolist()
+    world_b = add_box_obstacle(world_a, com[0] + 0.25, com[1])
+    assert world_b.height.shape == world_a.height.shape and not torch.equal(world_b.height, world_a.height)
+    calls = [lambda w=w: replan.plan_windows_batch(i["rows"][0], i["goals_r"][0], i["goals_yaw"][0], w, rcfg,
+                                                   t0s=i["t0s"][0])
+             for w in (world_a, world_a, world_b, world_a)]
+    monkeypatch.setattr(replan.plan_windows_batch, "new_worlds", 0)
+    eager, _, eager_launches = _replans(monkeypatch, 0, calls)
+    assert replan.plan_windows_batch.new_worlds == 0
+    graph, copies, graph_launches = _replans(monkeypatch, 16, calls)
+    fn = replan.plan_windows_batch
+    assert (fn.captures, fn.replays, fn.new_worlds) == (1, 3, 2)
+    assert len(replan._GRAPHS.entries) == 1 and eager_launches == graph_launches
+    for n, (e, g, c) in enumerate(zip(eager, graph, copies)):
+        assert all(torch.equal(a, b) for a, b in zip(e, g)), f"call {n}: the replay is not the eager path's"
+        assert all(torch.equal(a, b) for a, b in zip(g, c)), f"call {n}'s outputs changed under a later call"
+    assert not torch.equal(graph[2][0], graph[1][0])          # B's knots are not A's
+    assert all(torch.equal(a, b) for a, b in zip(graph[3], graph[1]))
+
+
+def test_replan_graph_cache_holds_one_entry_across_worlds(cuda, monkeypatch):
+    """Twenty worlds of one geometry, a fresh grid each, one replan on each:
+    one graph, captured once, replayed on the 19 worlds after the first;
+    every world after the capture's counted new, none of the worlds kept
+    alive by the cache."""
+    import gc
+    import weakref
+
+    from qtos_torch.control import replan
+    from qtos_torch.control.graphs import GraphCache
+    from qtos_torch.terrain.heightfield import add_box_obstacle
+
+    ground, rcfg, i, _ = _exp8_world(cuda, worlds=1)
+    monkeypatch.setattr(replan, "_GRAPHS", GraphCache(16))
+    for name in ("captures", "replays", "new_worlds"):
+        monkeypatch.setattr(replan.plan_windows_batch, name, 0)
+    grids = []
+    for w in range(20):
+        world = add_box_obstacle(ground, 2.3 + 0.035 * w, 0.0)
+        grids.append(weakref.ref(world.height))
+        replan.plan_windows_batch(i["rows"][0], i["goals_r"][0], i["goals_yaw"][0], world, rcfg, t0s=i["t0s"][0])
+        del world
+    fn = replan.plan_windows_batch
+    assert len(replan._GRAPHS.entries) == 1
+    assert (fn.captures, fn.replays, fn.new_worlds) == (1, 19, 18)
+    gc.collect()
+    assert all(g() is None for g in grids)
+
+
+def test_replan_graph_key_ignores_a_fresh_grid(cuda):
+    """`replan.exp1`'s key is the same for its terrain and for a fresh grid
+    of the same geometry, and its graph's inputs are the call's tensors and
+    that grid."""
+    from qtos_torch.control.replan import graph_key
+
+    terr, rcfg, i = _replan_world("exp_1", cuda, pools=1)
+    f32 = dict(dtype=torch.float32, device=cuda)
+    inputs = (i["rows"][0], i["goals_r"][0], i["goals_yaw"][0], i["t0s"][0], None, torch.zeros(3, **f32),
+              torch.zeros((), **f32))
+    fresh = dataclasses.replace(terr, height=terr.height.clone())
+    args = (rcfg.solver.replace(rescue_iters=0), rcfg.K, rcfg.window_duration, rcfg.gait)
+    assert graph_key(inputs, fresh, *args) == graph_key(inputs, terr, *args)
+    assert graph_key(inputs, dataclasses.replace(terr, height=terr.height[:, :-1]), *args) != graph_key(inputs, terr,
+                                                                                                          *args)
+
+
 def test_oneshot_plan_on_card(cuda):
     """The benchmark's `oneshot.exp1` plan, exp_1's whole path as the port's
     one-shot mode sizes it (K=154, B=1, 80 LM iterations, goal 2.1 m):

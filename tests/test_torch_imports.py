@@ -76,9 +76,22 @@ PORT_MODULES = [
 ]
 
 
+# The changing world's benchmark cell `replan.exp8` and its tests: the driver,
+# its traffic kind, the reference's box, the replay share's reader.
+WORLD_CELL_SOURCES = [
+    ("benchmark", "drivers", "plan_windows_world.py"),
+    ("benchmark", "traffic", "replans_world.py"),
+    ("benchmark", "reference", "world.py"),
+    ("benchmark", "metrics", "replay_pct.exp8.py"),
+    ("benchmark", "tests", "test_bench_world.py"),
+    ("tests", "test_torch_world.py"),
+]
+
+
 def _port_sources():
     out = [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "bench_torch.py")]
     out += [os.path.join(REPO, "scripts", f"{name}_torch.py") for name in ("main", "record", "sweep", "towr_deviation")]
+    out += [os.path.join(REPO, *parts) for parts in WORLD_CELL_SOURCES]
     for root, _, files in os.walk(os.path.join(REPO, "qtos_torch")):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)

@@ -46,7 +46,7 @@ def test_key_is_the_same_for_other_contents():
 
 @pytest.mark.parametrize("change", [
     "solver_iters", "solver_clearance", "k", "x0", "dtype", "K", "duration", "gait",
-    "terrain_identity", "terrain_resolution", "terrain_origin", "terrain_shape",
+    "terrain_dtype", "terrain_resolution", "terrain_origin", "terrain_shape",
 ])
 def test_key_tells_apart(change):
     other = dict(
@@ -58,8 +58,7 @@ def test_key_tells_apart(change):
         K=lambda: _key(K_=K + 2),
         duration=lambda: _key(duration=2.5),
         gait=lambda: _key(gait="walk"),
-        # the same heights in another tensor: the graph reads the grid by address
-        terrain_identity=lambda: _key(terrain=dataclasses.replace(TERRAIN, height=TERRAIN.height.clone())),
+        terrain_dtype=lambda: _key(terrain=dataclasses.replace(TERRAIN, height=TERRAIN.height.double())),
         terrain_resolution=lambda: _key(terrain=dataclasses.replace(TERRAIN, resolution=0.05)),
         terrain_origin=lambda: _key(terrain=dataclasses.replace(TERRAIN, origin=(-2.0, -1.0))),
         terrain_shape=lambda: _key(terrain=make_terrain(["plane", "plane"], device="cpu")),
@@ -70,8 +69,8 @@ def test_key_tells_apart(change):
 class _StubGraph:
     made = []
 
-    def __init__(self, fn, inputs, keep=None):
-        self.fn, self.inputs, self.keep = fn, inputs, keep
+    def __init__(self, fn, inputs):
+        self.fn, self.inputs = fn, inputs
         _StubGraph.made.append(self)
 
 
@@ -79,10 +78,9 @@ def test_cache_runs_eagerly_then_captures_then_replays(monkeypatch):
     monkeypatch.setattr(graphs, "Graph", _StubGraph)
     _StubGraph.made = []
     cache = graphs.GraphCache(3)
-    ground = object()
-    assert cache.graph("a", len, (1,), keep=ground) == (None, False)
-    g, captured = cache.graph("a", len, (2,), keep=ground)
-    assert captured and isinstance(g, _StubGraph) and g.keep is ground
+    assert cache.graph("a", len, (1,)) == (None, False)
+    g, captured = cache.graph("a", len, (2,))
+    assert captured and isinstance(g, _StubGraph)
     assert g.inputs == (2,)
     assert cache.graph("a", len, (3,)) == (g, False)
     assert len(_StubGraph.made) == 1
@@ -171,6 +169,35 @@ def test_graph_takes_back_a_capture_and_adds_each_replay(monkeypatch):
     assert _counted.launches == 8 and _StubCUDAGraph.replays == 2
     # each replay returns fresh tensors (the stand-in replays nothing)
     assert out[0] is not g.out[0] and out2[1][0] is not out[1][0] and torch.equal(out[0], g.out[0])
+
+
+def test_graph_tells_a_new_input_by_identity(monkeypatch):
+    """`new_inputs` marks the inputs that are other tensors than the ones
+    copied into their places last, by the capture or a replay, and keeps
+    none of them alive."""
+    import contextlib
+    import gc
+    import weakref
+
+    monkeypatch.setattr(graphs.torch.cuda, "CUDAGraph", _StubCUDAGraph)
+    monkeypatch.setattr(graphs.torch.cuda, "graph", lambda g: contextlib.nullcontext())
+    monkeypatch.setattr(graphs.torch.cuda, "device", lambda d: contextlib.nullcontext())
+    a, b, grid = torch.arange(3.0), torch.arange(3.0), torch.zeros(2, 2)
+    g = graphs.Graph(lambda x, y, h: x + h.sum(), (a, None, grid))
+    assert g.new_inputs == (False, False, False)
+    g.replay((a, None, grid))
+    assert g.new_inputs == (False, False, False)
+    fresh = grid.clone()
+    g.replay((b, None, fresh))
+    assert g.new_inputs == (True, False, True)
+    g.replay((b, None, fresh))
+    assert g.new_inputs == (False, False, False)
+    gone = weakref.ref(fresh)
+    del fresh
+    gc.collect()
+    assert gone() is None                                    # the graph held it weakly
+    g.replay((b, None, grid))
+    assert g.new_inputs == (False, False, True)
 
 
 def test_cpu_never_captures(monkeypatch):
